@@ -1,7 +1,7 @@
 """End-to-end solve driver: the library equivalent of the reference CLI
 pipeline (bslv_main.c:36-409): sol_init -> phase0 -> phase1 -> phase2 ->
 transforms -> output, with status short-circuits.  The port of
-``bensolve_tpu/algs/driver.py`` for the primal algorithm.
+``bensolve_tpu/algs/driver.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,11 @@ from bensolve_tpu_torch.vlp.problem import VLPProblem
 
 @dataclasses.dataclass
 class VLPSolution:
-    """Solve outcome plus the finished polytope pair."""
+    """Solve outcome plus the finished polytope pair.
+
+    ``swap`` records whether the pair's roles are exchanged (dual
+    algorithm in phase 2): the *upper image* is ``pair.dual`` when
+    swapped."""
 
     status: SolStatus
     vlp: VLPProblem
@@ -87,6 +91,19 @@ def trans_primal(vlp, sol, pair) -> None:
         _poly_minus(pair, 0, q - 1, q)      # y*_q -> -y*_q
 
 
+def trans_dual(vlp, sol, pair) -> None:
+    """Same for the dual algorithm's pair, whose primal polytope is the
+    LOWER image (reference poly_trans_dual, bslv_algs.c:234-242)."""
+    q = vlp.q
+    pos = sol.c_dir.value > 0
+    if pos and vlp.optdir == -1:
+        _poly_minus(pair, q, 0, q, p_lo=q - 1)
+    elif not pos and vlp.optdir == 1:
+        _poly_minus(pair, 0, 0, q)
+    elif not pos and vlp.optdir == -1:
+        _poly_minus(pair, q, 0, 0, p_lo=q - 1)
+
+
 def _count(sol, pair, swap: bool) -> None:
     """Solution cardinalities (reference poly_count, bslv_algs.c:146-184)."""
     upper, lower = (pair.dual, pair.primal) if swap else (pair.primal,
@@ -110,8 +127,6 @@ def _not_ported(opt: Options, resume) -> str | None:
         return "plot (OFF/INST graphics)"
     if opt.distributed:
         return "distributed"
-    if Alg.DUAL in (opt.alg_phase1, opt.alg_phase2):
-        return "the dual Benson algorithm"
     return None
 
 
@@ -149,13 +164,20 @@ def solve(vlp: VLPProblem, opt: Options | None = None,
                 sol.status, vlp, opt, sol, stats=stats,
                 message="upper image of VLP has no vertex "
                         "(this case is not covered by this version)")
-        phases.phase1_primal(sol, vlp, P_eff, opt, stats)
+        if opt.alg_phase1 is Alg.PRIMAL:
+            phases.phase1_primal(sol, vlp, P_eff, opt, stats)
+        else:
+            phases.phase1_dual(sol, vlp, P_eff, opt, stats)
 
-    pair = phases.phase2_primal(sol, vlp, P_eff, opt, stats)
-    return _finish(vlp, opt, sol, pair, stats, t0)
+    swap = opt.alg_phase2 is Alg.DUAL
+    if not swap:
+        pair = phases.phase2_primal(sol, vlp, P_eff, opt, stats)
+    else:
+        pair = phases.phase2_dual(sol, vlp, P_eff, opt, stats)
+    return _finish(vlp, opt, sol, pair, swap, stats, t0)
 
 
-def _finish(vlp, opt, sol, pair, stats, t0) -> VLPSolution:
+def _finish(vlp, opt, sol, pair, swap, stats, t0) -> VLPSolution:
     """Status short-circuits + output epilogue."""
     if sol.status in (SolStatus.INFEASIBLE, SolStatus.UNBOUNDED):
         if sol.status is SolStatus.INFEASIBLE:
@@ -166,15 +188,18 @@ def _finish(vlp, opt, sol, pair, stats, t0) -> VLPSolution:
             msg = "LP in phase 2 is not bounded, probably by inaccuracy in phase 1"
         return VLPSolution(sol.status, vlp, opt, sol, stats=stats, message=msg)
 
-    # output epilogue (bslv_algs.c:1125-1146)
-    trans_primal(vlp, sol, pair)
+    # output epilogue (bslv_algs.c:1125-1146 / :1554-1575)
+    if not swap:
+        trans_primal(vlp, sol, pair)
+    else:
+        trans_dual(vlp, sol, pair)
     pair.chop()
     pair.normalize_directions()
     pair.update_adjacency(pair.dual)
     time_ms = (time.perf_counter() - t0) * 1e3  # excludes file writing
     sol.status = SolStatus.OPTIMAL
-    _count(sol, pair, False)
-    res = VLPSolution(SolStatus.OPTIMAL, vlp, opt, sol, pair, False, stats,
+    _count(sol, pair, swap)
+    res = VLPSolution(SolStatus.OPTIMAL, vlp, opt, sol, pair, swap, stats,
                       time_ms)
     if opt.poly_test:
         errs = pair.check()
@@ -213,7 +238,9 @@ def solve_file(path: str, opt: Options | None = None) -> VLPSolution:
             fmt_out = (writers.FORMAT_LONG_STR
                        if opt.format is Format.LONG
                        else writers.FORMAT_SHORT_STR)
-            upper, lower = result.pair.primal, result.pair.dual
+            upper, lower = ((result.pair.dual, result.pair.primal)
+                            if result.swap
+                            else (result.pair.primal, result.pair.dual))
             mn = vlp.optdir == 1
             print(("Upper image of primal problem:" if mn
                    else "Lower image of primal problem:"))
@@ -221,7 +248,7 @@ def solve_file(path: str, opt: Options | None = None) -> VLPSolution:
             print(("Lower image of dual problem:" if mn
                    else "Upper image of dual problem:"))
             print(writers.format_vertices(lower, fmt_out), end="")
-        writers.write_image_family(result.pair, base, swap=False,
+        writers.write_image_family(result.pair, base, swap=result.swap,
                                    fmt=fmt_file, pre_img=bool(opt.solution))
         writers.write_log(base + ".log", problem_file=path, vlp=vlp,
                           sol=result.sol, opt=opt, time_ms=result.time_ms,

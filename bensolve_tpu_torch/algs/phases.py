@@ -1,8 +1,8 @@
-"""The Benson algorithm phases, batched (primal algorithm).
+"""The Benson algorithm phases, batched.
 
-The port of ``bensolve_tpu/algs/phases.py``; the dual phases (P1
-template) are not ported yet.  Reference: bslv_algs.c phase0 (:673),
-phase1_primal (:811), phase2_init (:943), phase2_primal (:958).
+The port of ``bensolve_tpu/algs/phases.py``.  Reference: bslv_algs.c
+phase0 (:673), phase1_primal (:811), phase2_init (:943), phase2_primal
+(:958), phase1_dual (:1248), phase2_dual (:1381).
 
 Where the serial C code pops ONE unprocessed vertex of the outer
 approximation per iteration and solves one LP (bslv_algs.c:863-895),
@@ -21,10 +21,11 @@ import numpy as np
 from bensolve_tpu_torch.algs.solution import (SolStatus, SolutionContext,
                                               cone_vertenum)
 from bensolve_tpu_torch.algs.templates import (HOMOGENEOUS, INHOMOGENEOUS,
-                                               P2Template)
+                                               P1Template, P2Template)
 from bensolve_tpu_torch.lp import simplex
 from bensolve_tpu_torch.poly.polytope import (POLY_EPS, PolytopePair,
-                                              make_lower_to_upper_v2h)
+                                              make_lower_to_upper_v2h,
+                                              make_upper_to_lower_v2h)
 from bensolve_tpu_torch.vlp.options import Options
 from bensolve_tpu_torch.vlp.problem import VLPProblem
 
@@ -129,11 +130,12 @@ def orthogonal_vector(C: np.ndarray, i: int) -> None:
     C[:, i] = v / np.sqrt(v @ v)
 
 
-def _template(vlp, P_eff, ZR, eta, homogeneous, opt: Options, method):
-    return P2Template(vlp, P_eff, ZR, eta, homogeneous,
-                      dtype=opt.lp_dtype, lp_verbose=opt.lp_message_level,
-                      lp_method=method, max_batch=opt.lp_max_batch,
-                      ipm_min=opt.lp_ipm_min, device=opt.device)
+def _lp_kw(opt: Options, method) -> dict:
+    """Template keywords from the options: every LP of a template runs
+    at ``opt.lp_dtype`` on ``opt.device``."""
+    return dict(dtype=opt.lp_dtype, lp_verbose=opt.lp_message_level,
+                lp_method=method, max_batch=opt.lp_max_batch,
+                ipm_min=opt.lp_ipm_min, device=opt.device)
 
 
 def phase0(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
@@ -143,8 +145,8 @@ def phase0(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
     Sets sol.eta, or sol.status to UNBOUNDED / NOVERTEX."""
     q = sol.q
     m = vlp.m
-    t2 = _template(vlp, P_eff, sol.Z, np.zeros(q), HOMOGENEOUS, opt,
-                   opt.lp_method_phase0)
+    t2 = P2Template(vlp, P_eff, sol.Z, np.zeros(q), HOMOGENEOUS,
+                    **_lp_kw(opt, opt.lp_method_phase0))
 
     def _log(what, t0):
         if opt.message_level >= 2:
@@ -244,8 +246,8 @@ def phase1_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
     """Outer-approximate the recession cone of the upper image
     (homogeneous Benson, reference bslv_algs.c:811-933)."""
     q = sol.q
-    t2 = _template(vlp, P_eff, sol.Z, sol.eta, HOMOGENEOUS, opt,
-                   opt.lp_method_phase1)
+    t2 = P2Template(vlp, P_eff, sol.Z, sol.eta, HOMOGENEOUS,
+                    **_lp_kw(opt, opt.lp_method_phase1))
     p = sol.p
     pair = PolytopePair(q, eps=POLY_EPS,
                         dual_v2h=make_lower_to_upper_v2h(sol.c))
@@ -431,8 +433,8 @@ def phase2_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
     lives in the driver)."""
     q = sol.q
     pre = opt.solution
-    t2 = _template(vlp, P_eff, sol.R, sol.eta, INHOMOGENEOUS, opt,
-                   opt.lp_method_phase2)
+    t2 = P2Template(vlp, P_eff, sol.R, sol.eta, INHOMOGENEOUS,
+                    **_lp_kw(opt, opt.lp_method_phase2))
     r = sol.r
     pair = PolytopePair(q, eps=POLY_EPS,
                         dual_v2h=make_lower_to_upper_v2h(sol.c),
@@ -498,13 +500,162 @@ def _direction_preimages(sol: SolutionContext, vlp: VLPProblem,
         poly.primg[i, : vlp.n] = X[k]
 
 
-def phase1_dual(*args, **kwargs):
-    raise NotImplementedError(
-        "the dual Benson algorithm (-A dual) is not ported to "
-        "bensolve_tpu_torch yet (ROADMAP Queue 1, dual algorithm)")
+def phase1_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
+                opt: Options, stats: Stats) -> PolytopePair:
+    """Homogeneous dual Benson on the lower image (reference
+    bslv_algs.c:1248-1371).  The pair's primal polytope is the LOWER
+    image; upper-image points arrive as dual vertices."""
+    t1 = P1Template(vlp, P_eff, sol.eta, HOMOGENEOUS,
+                    **_lp_kw(opt, opt.lp_method_phase1))
+    pair = PolytopePair(sol.q, eps=POLY_EPS,
+                        dual_v2h=make_upper_to_lower_v2h(sol.c))
+    # PART 1: weighted LP at the mean of Z plus Y columns as directions
+    w0 = sol.Z.mean(axis=1)
+    res = t1.solve(w0[None])
+    stats.lps += 1
+    _check_all_optimal(res, "phase1_dual init")
+    pair.add_vertex(t1.primal_y(res)[0], ideal=False)
+    for j in range(sol.o):
+        pair.add_vertex(sol.Y[:, j], ideal=True)
+    if not pair.initial_approx():
+        raise RuntimeError("phase1_dual: initial approximation failed")
+
+    _benson_dual_loop(pair, t1, sol, opt.eps_benson_phase1, stats,
+                      warm_mode=opt.warm_mode, verbose=opt.message_level)
+    _extract_R_H(sol, pair.primal, opt, stats)
+    return pair
 
 
-def phase2_dual(*args, **kwargs):
-    raise NotImplementedError(
-        "the dual Benson algorithm (-a dual) is not ported to "
-        "bensolve_tpu_torch yet (ROADMAP Queue 1, dual algorithm)")
+def _w_of_ystar(V: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """w(y*) = (y*_1..y*_{q-1}, 1 - sum_i c_i y*_i) (bslv_algs.c:1313)."""
+    B, q = V.shape
+    W = np.empty((B, q))
+    W[:, : q - 1] = V[:, : q - 1]
+    W[:, q - 1] = 1.0 - V[:, : q - 1] @ c[: q - 1]
+    return W
+
+
+def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
+                      sol: SolutionContext, eps: float, stats: Stats,
+                      *, pre_img: bool = False, optdir: int = 1,
+                      allow_unbounded: bool = False,
+                      warm_mode: str = "auto",
+                      verbose: int = 0) -> SolStatus | None:
+    """Shared main loop of the dual phases: per round, solve P1(w(y*))
+    for every unprocessed vertex y* of the lower-image approximation and
+    either add the point P1 found (obj below y*_q - eps) or finalize
+    the vertex.  ``warm_mode`` as in _benson_primal_loop."""
+    P = pair.primal
+    q = sol.q
+    m = t1.m
+    warm = _FacetWarm(
+        warm_mode == "per_candidate"
+        or (warm_mode == "auto" and not t1.prefers_shared_warm()))
+    while True:
+        frontier = P.frontier()
+        if frontier.size == 0:
+            break
+        ideals = frontier[P.ideal[frontier]]
+        P.sltn[ideals] = True
+        cand = frontier[~P.ideal[frontier]]
+        if cand.size == 0:
+            continue
+        stats.rounds += 1
+        if verbose >= 3:
+            for _ in range(cand.size):   # bslv_algs.c:1319
+                print("process dual vertex - solve lp")
+        V = P.data[cand].copy()
+        W = _w_of_ystar(V, sol.c)
+        res = t1.solve(W, start_basis=warm.lookup(P, cand))
+        stats.lps += cand.size
+        stats.pivots += int(res.iters.sum())
+        if allow_unbounded and (res.status == simplex.UNBOUNDED).any():
+            return SolStatus.UNBOUNDED
+        _check_all_optimal(res, "dual Benson loop")
+        Y = t1.primal_y(res)
+        passed = V[:, q - 1] - res.obj > eps
+        if pre_img:
+            xs = t1.primal_x(res)
+            uws = np.concatenate([
+                t1.duals_u(res) * (1 if optdir == 1 else -1),
+                W * (1 if sol.c_dir.value > 0 else -1)], axis=1)
+
+        progressed = False
+        round_cuts = round_final = 0
+        for i in range(cand.size):
+            idx = int(cand[i])
+            if not P.used[idx]:
+                continue   # removed by an earlier cut this round
+            if passed[i]:
+                primg = xs[i] if pre_img else None
+                if pair.add_vertex(Y[i], ideal=False, primg=primg):
+                    stats.cuts += 1
+                    round_cuts += 1
+                    progressed = True
+                    if verbose >= 3:   # bslv_algs.c:1327
+                        print("add primal vertex")
+                    warm.record(pair.last_added, res.basis[i],
+                                res.at_upper[i])
+            else:
+                P.sltn[idx] = True
+                round_final += 1
+                progressed = True
+                if pre_img:
+                    P.primg[idx, : m + q] = uws[i]
+        if verbose >= 2:
+            print(f"[benson_dual] round {stats.rounds}: {cand.size} LPs, "
+                  f"{round_cuts} cuts, {round_final} finalized, "
+                  f"{stats.lps} LPs total")
+        if not progressed:
+            P.sltn[cand] = True
+            break
+    return None
+
+
+def phase2_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
+                opt: Options, stats: Stats) -> PolytopePair | None:
+    """Inhomogeneous dual Benson (reference bslv_algs.c:1381-1592,
+    computation part; output epilogue lives in the driver)."""
+    q = sol.q
+    pre = opt.solution
+    t1 = P1Template(vlp, P_eff, sol.eta, INHOMOGENEOUS,
+                    **_lp_kw(opt, opt.lp_method_phase2))
+    pair = PolytopePair(q, eps=POLY_EPS,
+                        dual_v2h=make_upper_to_lower_v2h(sol.c),
+                        dim_primg_primal=vlp.m + q if pre else 0,
+                        dim_primg_dual=vlp.n if pre else 0)
+    # PART 1: weighted LP at the mean of R plus H columns as directions
+    w0 = sol.R.mean(axis=1)
+    res = t1.solve(w0[None])
+    stats.lps += 1
+    if res.status[0] != simplex.OPTIMAL:
+        sol.status = (SolStatus.INFEASIBLE
+                      if res.status[0] == simplex.INFEASIBLE
+                      else SolStatus.UNBOUNDED)
+        return None
+    primg = t1.primal_x(res)[0] if pre else None
+    pair.add_vertex(t1.primal_y(res)[0], ideal=False, primg=primg)
+    for j in range(sol.h):
+        pair.add_vertex(sol.H[:, j], ideal=True)
+    if not pair.initial_approx():
+        raise RuntimeError("phase2_dual: initial approximation failed")
+
+    status = _benson_dual_loop(pair, t1, sol, opt.eps_benson_phase2, stats,
+                               pre_img=bool(pre), optdir=vlp.optdir,
+                               allow_unbounded=True,
+                               warm_mode=opt.warm_mode,
+                               verbose=opt.message_level)
+    if status is not None:
+        sol.status = status
+        return None
+
+    if pre:
+        # facet pre-images: ideal DUAL vertices are upper-image
+        # directions (bslv_algs.c:1514-1543; the reference indexes Z
+        # with stride r instead of p at :1535, the JAX package and this
+        # port index Z correctly)
+        _direction_preimages(sol, vlp, P_eff, pair.dual, stats, opt)
+        for i in pair.primal.live():
+            if pair.primal.ideal[i]:
+                pair.primal.primg[i, : pair.primal.dim_primg] = 0.0
+    return pair

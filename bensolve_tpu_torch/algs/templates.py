@@ -1,17 +1,23 @@
-"""Benson-oracle LP template P2 as a batched dense LP.
+"""Benson-oracle LP templates P2 and P1 as batched dense LPs.
 
-The port of ``bensolve_tpu/algs/templates.py`` (the P1 template of the
-dual algorithm is not ported yet).  The reference re-parameterizes ONE
-GLPK instance in place per iteration (init_P2 bslv_algs.c:562-664).
-Here the template is an immutable dense matrix plus base bounds;
-per-candidate data (the upper row bounds Z'v) comes in as a batch, and
-the whole frontier is solved in one device call.
+The port of ``bensolve_tpu/algs/templates.py``.  The reference
+re-parameterizes ONE GLPK instance in place per iteration (init_P2
+bslv_algs.c:562-664, init_P1 bslv_algs.c:1186-1238).  Here each template
+is an immutable dense matrix plus base bounds; per-candidate data (the
+upper row bounds Z'v for P2, the objective w for P1) comes in as a
+batch, and the whole frontier is solved in one device call.
 
 Template P2(v) (homogeneous/inhomogeneous), variables (x, y, z):
 
     min z   s.t.  row bounds  on A x                  (m rows)
                   -P x + y  == 0                      (q rows)
                   ZR'y - (ZR'c) z <= ZR'v             (p rows, ZR'c = 1)
+                  eta'y <= 1 (hom) / free (inhom)     (1 row)
+
+Template P1(w), variables (x, y):
+
+    min w'y s.t.  row bounds on A x                   (m rows)
+                  -P x + y == 0                       (q rows)
                   eta'y <= 1 (hom) / free (inhom)     (1 row)
 """
 
@@ -174,6 +180,7 @@ class _TemplateBase:
             res = solve_batch_auto(A_lp, obj, row_lb, row_ub, col_lb,
                                    col_ub, start_basis=warm,
                                    dtype=self.dtype, ipm_min=self.ipm_min,
+                                   verbose=self.lp_verbose,
                                    device=self.device)
             self._kept_state = None
         ok = np.flatnonzero(res.status == simplex.OPTIMAL)
@@ -209,6 +216,22 @@ class _TemplateBase:
         A_lp[m:m + q, :n] = -self.P_eff
         A_lp[m:m + q, n:n + q] = np.eye(q)
         return A_lp
+
+    # both templates' variables start with (x, y)
+    def primal_x(self, res: LPResult) -> np.ndarray:
+        return res.x[:, : self.n]
+
+    def primal_y(self, res: LPResult) -> np.ndarray:
+        return res.x[:, self.n:self.n + self.q]
+
+    def duals_u(self, res: LPResult) -> np.ndarray:
+        """Row duals of the m VLP rows — the dual pre-image u.
+
+        In P1 this is where the reference reads COLUMN duals 1..m
+        (bslv_algs.c:1497, lp_dual_solution_cols): those index reduced
+        costs of x and are wrong whenever m != n.  Like the JAX package,
+        the port reads the row duals, the multipliers of the A-rows."""
+        return res.row_dual[:, : self.m]
 
 
 class P2Template(_TemplateBase):
@@ -285,12 +308,43 @@ class P2Template(_TemplateBase):
         """Row dual of the eta row (row m+q+p+1)."""
         return res.row_dual[:, self.m + self.q + self.p]
 
-    def duals_u(self, res: LPResult) -> np.ndarray:
-        """Row duals of the m VLP rows (the dual pre-image u)."""
-        return res.row_dual[:, : self.m]
 
-    def primal_x(self, res: LPResult) -> np.ndarray:
-        return res.x[:, : self.n]
+class P1Template(_TemplateBase):
+    # per-candidate data is the OBJECTIVE: a parent basis stays primal
+    # feasible, so re-solves take the primal warm start (the default
+    # _bound_change_resolve = False)
 
-    def primal_y(self, res: LPResult) -> np.ndarray:
-        return res.x[:, self.n:self.n + self.q]
+    def __init__(self, vlp, P_eff, eta: np.ndarray, homogeneous: bool,
+                 dtype=np.float64, lp_verbose: int = 0,
+                 lp_method: str = "auto", max_batch: int | None = None,
+                 ipm_min: int = 0, device: str = "cuda"):
+        super().__init__(vlp, P_eff, homogeneous, dtype, lp_verbose,
+                         lp_method, max_batch, ipm_min, device)
+        m, n, q = self.m, self.n, self.q
+        A_lp = self._alloc_lp_matrix(1, 0)       # (m+q+1, n+q)
+        A_lp[m + q, n:n + q] = np.asarray(eta, float)
+        self.A_lp = A_lp
+        self.col_lb = np.concatenate([self.col_lb_vlp, np.full(q, -np.inf)])
+        self.col_ub = np.concatenate([self.col_ub_vlp, np.full(q, np.inf)])
+
+    def solve(self, w_batch: np.ndarray, start_basis=None) -> LPResult:
+        """``w_batch``: (B, q) objective weights on the y variables."""
+        w_batch = np.atleast_2d(np.asarray(w_batch, float))
+        B = w_batch.shape[0]
+        eta_ub = 1.0 if self.homogeneous else np.inf
+
+        m, n, q = self.m, self.n, self.q
+        obj = np.concatenate([np.zeros((B, n)), w_batch], axis=1)
+        row_lb = np.concatenate([
+            np.broadcast_to(self.row_lb_vlp, (B, m)),
+            np.zeros((B, q)),
+            np.full((B, 1), -np.inf)], axis=1)
+        row_ub = np.concatenate([
+            np.broadcast_to(self.row_ub_vlp, (B, m)),
+            np.zeros((B, q)),
+            np.full((B, 1), eta_ub)], axis=1)
+        return self._run(
+            self.A_lp, obj, row_lb, row_ub,
+            np.broadcast_to(self.col_lb, (B, self.col_lb.size)),
+            np.broadcast_to(self.col_ub, (B, self.col_ub.size)),
+            start_basis=start_basis)

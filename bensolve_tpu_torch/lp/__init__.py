@@ -1,5 +1,6 @@
-"""LP backends: the batched tableau simplex (torch ops) and the per-LP
-simplex kernel (CUDA), behind one router."""
+"""LP backends: the batched tableau simplex (torch ops), the batched
+revised simplex for tall LPs (torch ops) and the per-LP simplex kernel
+(CUDA), behind one router."""
 
 from __future__ import annotations
 
@@ -8,8 +9,8 @@ import os
 import numpy as np
 import torch
 
-# tall problems (N >= REVISED_RATIO * M) go to the revised simplex in the
-# JAX package; the same threshold marks where the tableau path stops
+# N/M ratio from which a batch routes to the revised simplex: the
+# tableau carries (M+N)/M times more state than the basis inverse
 REVISED_RATIO = 4
 
 
@@ -17,14 +18,17 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
     """Route a batch of LPs to its backend (the role of GLPK's
     glp_simplex dispatch behind lp_solve, bslv_lp.c:219):
 
+    * tall problems (N >= REVISED_RATIO * M): the revised simplex
+      (lp/revised.py), whatever the dtype, so a tall batch never
+      reaches the kernel;
     * float32 batches on a CUDA device whose shape the kernel takes: the
       per-LP simplex kernel (lp/group_simplex.py); a per-instance warm
       start falls through;
     * otherwise: the lockstep tableau simplex (lp/simplex.py).
 
-    The interior-point route (``ipm_min`` / BENSOLVE_IPM_MIN) and the
-    revised route for tall problems are not ported yet and raise."""
-    from bensolve_tpu_torch.lp import group_simplex, simplex
+    The interior-point route (``ipm_min`` / BENSOLVE_IPM_MIN) is not
+    ported yet and raises."""
+    from bensolve_tpu_torch.lp import group_simplex, revised, simplex
 
     if isinstance(A, simplex._PreparedA):
         M, N = A.M, A.N
@@ -34,17 +38,15 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
         raise NotImplementedError(
             "mesh: multi-device LP sharding is not ported to "
             "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
-    kw.pop("verbose", None)
+    verbose = kw.pop("verbose", 0)
     ipm_min = kw.pop("ipm_min", 0) or _ipm_min_env()
     if ipm_min and M + N >= ipm_min:
         raise NotImplementedError(
             "the interior-point LP route (lp_ipm_min / BENSOLVE_IPM_MIN) is "
             "not ported to bensolve_tpu_torch yet (ROADMAP Queue 1, IPM)")
     if N >= REVISED_RATIO * M:
-        raise NotImplementedError(
-            f"tall LP ({M}x{N}, N >= {REVISED_RATIO}M): the revised simplex "
-            f"is not ported to bensolve_tpu_torch yet (ROADMAP Queue 1, "
-            f"revised simplex)")
+        return revised.solve_batch_revised(A, c, row_lb, row_ub, col_lb,
+                                           col_ub, verbose=verbose, **kw)
     device = kw.get("device", "cuda")
     if _kernel_eligible(M, N, kw, device):
         res = group_simplex.try_solve_batch(A, c, row_lb, row_ub, col_lb,

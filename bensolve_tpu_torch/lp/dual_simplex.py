@@ -36,7 +36,7 @@ def _dstep(A, c, lb, ub, st: sx._State) -> sx._State:
     running = st.status == RUNNING
     zero = c.new_zeros(())
     one = c.new_ones(())
-    inf = c.new_tensor(float("inf"))
+    inf = c.new_full((), float("inf"))
 
     # --- leaving row: most primal-infeasible basic variable -----------
     below = st.xb < st.lbB - TOL_BND

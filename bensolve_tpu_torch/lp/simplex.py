@@ -193,7 +193,7 @@ def _devex_entering(d, eligible, gamma, use_bland):
     after a degeneracy stall.  argmax returns the first index on ties,
     as jnp.argmax does."""
     NT = d.shape[1]
-    neg_inf = d.new_tensor(-float("inf"))
+    neg_inf = d.new_full((), -float("inf"))
     devex_score = torch.where(eligible, d * d / gamma, neg_inf)
     lane = torch.arange(NT, dtype=d.dtype, device=d.device)
     bland_score = torch.where(eligible, -lane, neg_inf)
@@ -279,7 +279,9 @@ def _step(A, c, lb, ub, st: _State) -> _State:
     running = st.status == RUNNING
     zero = c.new_zeros(())
     one = c.new_ones(())
-    inf = c.new_tensor(float("inf"))
+    # filled on the device: new_tensor would copy from the host, and a
+    # blocking host-to-device copy waits for the card every pivot
+    inf = c.new_full((), float("inf"))
 
     viol_lo = st.xb < st.lbB - TOL_BND
     viol_up = st.xb > st.ubB + TOL_BND
@@ -410,12 +412,16 @@ def _step(A, c, lb, ub, st: _State) -> _State:
                   new_status, stall_new, iters_new, gamma_new)
 
 
-def _final_solutions(A, c, lb, ub, basis, in_basis, at_upper, cB):
+def _final_solutions(A, c, lb, ub, basis, in_basis, at_upper, cB,
+                     Bmat=None):
     """Accurate primal/dual recovery at termination: refactorize the
     final basis once (batched LU) so results do not inherit rank-1
-    drift from the pivot loop."""
+    drift from the pivot loop.  ``Bmat``: the (B, M, M) basis matrices
+    when the caller already holds them (the revised simplex maintains
+    them); otherwise they are gathered from E."""
     M = A.shape[0]
-    Bmat = _batched_basis_matrices(A, basis)
+    if Bmat is None:
+        Bmat = _batched_basis_matrices(A, basis)
     zn = torch.where(in_basis, c.new_zeros(()), _nb_value(lb, ub, at_upper))
     rhs = -_e_matmul(A, zn)                                        # (B, M)
     LU, piv = _lu_factor(Bmat)
@@ -555,6 +561,14 @@ class _PreparedA:
     Np: int
     dev: torch.Tensor    # (Mp, Np) padded, on ``dev.device``
     host: np.ndarray     # (Mp, Np) padded host copy
+    devT: torch.Tensor | None = None   # contiguous A^T, made on first use
+
+    def transposed(self) -> torch.Tensor:
+        """The padded A^T, contiguous on the same device (the revised
+        simplex reads pivot columns as its rows)."""
+        if self.devT is None:
+            self.devT = self.dev.T.contiguous()
+        return self.devT
 
 
 _A_CACHE: collections.OrderedDict = collections.OrderedDict()

@@ -15,14 +15,29 @@ Phases, one output line (or block) each:
    read just after, held to the support-function oracle at 1e-3;
 5. the main path at the default float64 (torch ops) on example10, held
    to the support oracle at 1e-4;
-6. the result line.
+6. the dual Benson algorithm (-A dual -a dual) at float64 on example10:
+   the support oracle at 1e-4, and the same upper-image points as
+   phase 5 within 1e-6;
+7. the dual algorithm at float32 on example01, 05, 08 and 10, the
+   kernel's warm route (every P1 round starts from one shared basis):
+   its launches counted over this phase alone, and the kernel's share of
+   the phase's wall time from CUDA events around the launches;
+8. a tall VLP (every LP has N >= 4M) through the revised simplex at
+   float64 with both algorithms: the revised route taken, the tableau
+   and the kernel untouched, the oracle at 1e-4, and the two upper
+   images equal within 1e-6 (support functions at 4096 weights; their
+   vertex lists may differ along nearly straight stretches);
+9. the revised simplex on the card against the CPU on two random
+   batches (float64 to 1e-9, float32 to 1e-3);
+10. the result lines.
 
 The second-to-last line is one JSON object with the kernels of the path
-(name, route, source, the TPU kernel it replaces, launches in phase 4,
-max |kernel - plain| on the phase-3 batch, kernel and plain times); the
-last line is {"ok": true, "device": {...}}.  Any failed phase raises and
-exits non-zero before those lines.  Without a CUDA device, or without
-the package beside this script, it exits non-zero and prints no result.
+(name, route, source, the TPU kernel it replaces, launches in phase 4
+and, as launches_dual_f32, in phase 7, max |kernel - plain| on the
+phase-3 batch, kernel and plain times); the last line is {"ok": true,
+"device": {...}}.  Any failed phase raises and exits non-zero before
+those lines.  Without a CUDA device, or without the package beside this
+script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -38,6 +53,10 @@ import torch
 
 F32_KW = dict(lp_dtype="float32", eps_benson_phase1=1e-4,
               eps_benson_phase2=1e-4)
+DUAL_KW = dict(alg_phase1="dual", alg_phase2="dual")
+# the tall phase's VLP: examples.random_vlp(q, m, n); its P2 LP is
+# (m+q+q+1) x (n+q+1), tall by a factor of about n/m
+TALL = (2, 100, 1000)
 KERNEL_SOURCE = "bensolve_tpu_torch/lp/csrc/group_simplex.cu"
 KERNEL_REPLACES = "bensolve_tpu/lp/pallas_simplex.py:55"
 REL_TOL = 1e-4       # float32 kernel vs plain: other summation orders
@@ -105,7 +124,8 @@ def make(M, N, B, seed):
 
 
 def _time_ms(fn, reps):
-    fn()
+    """CUDA-event time per call; the caller has just run ``fn`` once on
+    the same inputs, which serves as the warm-up."""
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -275,14 +295,73 @@ def check_support(result, tol, n_samples=64):
     return worst
 
 
-def _solve(name, opt):
+def _options(**kw):
+    from bensolve_tpu_torch.vlp.options import Alg, Options
+
+    for k in ("alg_phase1", "alg_phase2"):
+        if k in kw:
+            kw[k] = Alg(kw[k])
+    return Options(write_files=False, device="cuda", **kw)
+
+
+def _solve(name, opt, vlp=None):
     from bensolve_tpu_torch import examples, solve
 
+    vlp = examples.ALL[name]() if vlp is None else vlp
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = solve(examples.ALL[name](), opt)
+    r = solve(vlp, opt)
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
+
+
+def _set_distance(a, b):
+    """(largest max-norm distance from a point of either set to the
+    nearest point of the other, number of points farther than 1e-6)."""
+    a, b = np.atleast_2d(a), np.atleast_2d(b)
+    d = np.abs(a[:, None, :] - b[None, :, :]).max(axis=2)
+    near_a, near_b = d.min(axis=1), d.min(axis=0)
+    worst = float(max(near_a.max(), near_b.max()))
+    return worst, int((near_a > 1e-6).sum() + (near_b > 1e-6).sum())
+
+
+def _sets_close(a, b, tol):
+    worst, _ = _set_distance(a, b)
+    if not worst <= tol:
+        raise AssertionError(f"point sets differ by {worst:.2e} > {tol}")
+    return worst
+
+
+def _images_close(ra, rb, tol, n_samples=4096):
+    """Largest relative gap between the support functions (min over the
+    points of w'y) of two solutions' upper images, at sampled w in the
+    interior of C*: the weights of check_support, many more of them.
+    Two epsilon-solutions of one VLP agree here even where their vertex
+    lists differ: along a nearly straight stretch of the boundary one
+    algorithm may keep a vertex the other never visits."""
+    _, pa, _ = canonical(ra)
+    _, pb, _ = canonical(rb)
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for _ in range(n_samples // 1024):
+        W = ra.sol.Z @ (rng.random((ra.sol.p, 1024)) + 1e-3)
+        W /= np.abs(W).sum(axis=0)
+        ha, hb = (pa @ W).min(axis=0), (pb @ W).min(axis=0)
+        worst = max(worst, float((np.abs(ha - hb) / (1 + np.abs(hb))).max()))
+    if not worst <= tol:
+        raise AssertionError(f"upper images differ by {worst:.2e} > {tol}")
+    return worst
+
+
+def _report(tag, name, r, wall, tol):
+    if r.status.name != "OPTIMAL":
+        raise AssertionError(f"{tag} {name}: status {r.status}")
+    gap = check_support(r, tol)
+    log(f"[{tag}] {name}: OPTIMAL in {wall:.2f} s, points "
+        f"{len(r.primal_points)} directions {len(r.primal_directions)} "
+        f"LPs {r.stats.lps} rounds {r.stats.rounds} pivots "
+        f"{r.stats.pivots}; support oracle worst gap {gap:.1e} "
+        f"(limit {tol:g})")
 
 
 def phase_main_f32():
@@ -329,17 +408,167 @@ def phase_main_f32():
 
 
 def phase_main_f64():
-    from bensolve_tpu_torch.vlp.options import Options
+    """The default float64 path on example10; returns its result."""
+    r, wall = _solve("example10", _options())
+    _report("main f64", "example10", r, wall, 1e-4)
+    return r
 
-    r, wall = _solve("example10", Options(write_files=False, device="cuda"))
-    if r.status.name != "OPTIMAL":
-        raise AssertionError(f"example10 float64: status {r.status}")
-    gap = check_support(r, 1e-4)
-    log(f"[main f64] example10: OPTIMAL in {wall:.2f} s, points "
-        f"{len(r.primal_points)} directions {len(r.primal_directions)} "
-        f"LPs {r.stats.lps} rounds {r.stats.rounds} pivots "
-        f"{r.stats.pivots}; support oracle worst gap {gap:.1e} "
-        f"(limit 1e-4)")
+
+def phase_dual_f64(primal):
+    """The dual algorithm at float64 on example10, held to the primal
+    algorithm's points of phase 5."""
+    r, wall = _solve("example10", _options(**DUAL_KW))
+    _report("dual f64", "example10", r, wall, 1e-4)
+    dist = _sets_close(r.primal_points, primal.primal_points, 1e-6)
+    log(f"[dual f64] example10: upper-image points within {dist:.1e} of "
+        f"the primal algorithm's ({len(primal.primal_points)} points; "
+        f"limit 1e-6)")
+
+
+def phase_dual_f32():
+    """The dual algorithm at float32, the kernel's warm route; returns
+    the kernel's launch count in this phase."""
+    from bensolve_tpu_torch.lp import group_simplex
+
+    events = []
+    real = group_simplex.solve_batch_group
+
+    def timed(*a):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real(*a)
+        t1.record()
+        events.append((t0, t1))
+        return out
+
+    group_simplex.solve_batch_group = timed
+    group_simplex.CALLS = 0
+    runs = []
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    try:
+        for name in ("example01", "example05", "example08", "example10"):
+            r, wall = _solve(name, _options(**F32_KW, **DUAL_KW))
+            runs.append((name, r, wall))
+    finally:
+        group_simplex.solve_batch_group = real
+    torch.cuda.synchronize()
+    phase_wall = time.perf_counter() - t_phase
+    launches = group_simplex.CALLS
+    for name, r, wall in runs:
+        _report("dual f32", name, r, wall, 1e-3)
+    if launches <= 0:
+        raise AssertionError("the dual float32 path launched the kernel 0 "
+                             "times")
+    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    log(f"[dual f32] group_simplex kernel launches: {launches}; kernel "
+        f"{kernel_s:.3f} s of {phase_wall:.2f} s phase wall "
+        f"({kernel_s / phase_wall:.3f}, CUDA events around the launches)")
+    return launches
+
+
+def phase_tall():
+    """A tall VLP through the revised simplex with both algorithms."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.lp import (dual_simplex, group_simplex, revised,
+                                       simplex)
+
+    q, m, n = TALL
+    counts = {"tableau": 0, "dual tableau": 0}
+    real = (simplex.solve_batch, dual_simplex.solve_batch_dual)
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    real_rv = revised._solve_revised_segmented
+    solve_s = []
+
+    def timed(*a, **kw):
+        # the revised LP layer: one batched device solve, host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_rv(*a, **kw)
+        torch.cuda.synchronize()
+        solve_s[-1].append(time.perf_counter() - t0)
+        return res
+
+    simplex.solve_batch = counting("tableau", real[0])
+    dual_simplex.solve_batch_dual = counting("dual tableau", real[1])
+    revised._solve_revised_segmented = timed
+    revised.CALLS = 0
+    group_simplex.CALLS = group_simplex.ROUTED = 0
+    out = {}
+    try:
+        for alg in ("primal", "dual"):
+            vlp = examples.random_vlp(q=q, m=m, n=n)
+            solve_s.append([])
+            out[alg] = _solve(None, _options(alg_phase1=alg, alg_phase2=alg),
+                              vlp=vlp)
+    finally:
+        simplex.solve_batch, dual_simplex.solve_batch_dual = real
+        revised._solve_revised_segmented = real_rv
+    if revised.CALLS <= 0:
+        raise AssertionError("tall phase: the revised simplex ran 0 times")
+    others = dict(counts, kernel=group_simplex.ROUTED)
+    if any(others.values()):
+        raise AssertionError(f"tall phase: other LP backends ran {others}")
+    shape = (m + 2 * q + 1, n + q + 1)
+    for (alg, (r, wall)), secs in zip(out.items(), solve_s):
+        _report("tall f64", f"random_vlp(q={q}, m={m}, n={n}) {alg}", r,
+                wall, 1e-4)
+        log(f"[tall f64] {alg}: revised LP layer {sum(secs):.2f} s of "
+            f"{wall:.2f} s wall in {len(secs)} batched solves (mean "
+            f"{np.mean(secs):.3f} s, max {max(secs):.3f} s; host clock "
+            f"with syncs)")
+    (rp, _), (rd, _) = out["primal"], out["dual"]
+    gap = _images_close(rp, rd, 1e-6)
+    dist, n_apart = _set_distance(rp.primal_points, rd.primal_points)
+    log(f"[tall f64] P2 LP {shape[0]}x{shape[1]} (N/M = "
+        f"{shape[1] / shape[0]:.1f}); revised batched solves "
+        f"{revised.CALLS}, tableau/dual tableau/kernel "
+        f"{counts['tableau']}/{counts['dual tableau']}/0; primal and dual "
+        f"upper images within {gap:.1e} (support functions at 4096 "
+        f"weights; limit 1e-6); vertex lists {len(rp.primal_points)} and "
+        f"{len(rd.primal_points)}, {n_apart} points farther than 1e-6 "
+        f"from the other list (worst {dist:.1e})")
+
+
+def _tall_batch(seed, M, N, B):
+    """The random-instance recipe of tests/test_revised.py."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N)) / np.sqrt(N)
+    x0 = rng.random((B, N))
+    c = rng.standard_normal((B, N))
+    row_ub = x0 @ A.T + 0.3 + rng.random((B, M))
+    return (A, c, np.full((B, M), -np.inf), row_ub, np.zeros((B, N)),
+            np.full((B, N), 5.0))
+
+
+def phase_revised_vs_cpu():
+    from bensolve_tpu_torch.lp import revised
+
+    for shape, dtype, tol in (((0, 6, 30, 8), np.float64, 1e-9),
+                              ((11, 48, 320, 4), np.float32, 1e-3)):
+        args = _tall_batch(*shape)
+        card = revised.solve_batch_revised(*args, dtype=dtype, device="cuda")
+        cpu = revised.solve_batch_revised(*args, dtype=dtype, device="cpu")
+        if not (card.status == cpu.status).all():
+            raise AssertionError(f"revised {shape}: status {card.status} on "
+                                 f"the card, {cpu.status} on the CPU")
+        ok = cpu.status == 1
+        err = float(np.abs(card.obj[ok] - cpu.obj[ok]).max()) if ok.any() \
+            else 0.0
+        if not err <= tol * (1 + float(np.abs(cpu.obj[ok]).max())):
+            raise AssertionError(f"revised {shape}: obj differs by {err:.2e}")
+        log(f"[revised] M={shape[1]} N={shape[2]} B={shape[3]} "
+            f"{np.dtype(dtype).name}: status equal on the card and the CPU "
+            f"({int(ok.sum())} optimal), max |obj diff| {err:.1e} (limit "
+            f"{tol:g}); pivots card {card.iters.tolist()} cpu "
+            f"{cpu.iters.tolist()}")
 
 
 def main() -> int:
@@ -354,10 +583,16 @@ def main() -> int:
     phase_build()
     err, ms, plain_ms = phase_kernel()
     launches = phase_main_f32()
-    phase_main_f64()
+    primal = phase_main_f64()
+    phase_dual_f64(primal)
+    launches_dual = phase_dual_f32()
+    phase_tall()
+    phase_revised_vs_cpu()
+    log(smi_line())
     log(json.dumps({"kernels": [{
         "name": "group_simplex", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
+        "launches_dual_f32": launches_dual,
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

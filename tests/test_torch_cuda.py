@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: it builds, launches on the main
-path, and agrees with its plain PyTorch version.
+"""The port on the card: the CUDA kernel builds, launches on the main
+path (primal and dual algorithm) and agrees with its plain PyTorch
+version; the revised simplex gives on the card what it gives on the CPU,
+with TF32 off.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -14,7 +16,11 @@ import torch
 
 from bensolve_tpu_torch import Options, examples, solve
 from bensolve_tpu_torch.lp import group_simplex as gs
+from bensolve_tpu_torch.lp import revised as rv
 from bensolve_tpu_torch.lp.simplex import OPTIMAL
+from bensolve_tpu_torch.vlp.options import Alg
+
+F32 = dict(lp_dtype="float32", eps_benson_phase1=1e-4, eps_benson_phase2=1e-4)
 
 
 def make(M, N, B, seed):
@@ -76,3 +82,60 @@ def test_f32_solve_goes_through_the_kernel(cuda_device):
                         device="cuda"))
     assert res.status.name == "OPTIMAL"
     assert gs.CALLS > calls
+
+
+@pytest.mark.cuda
+def test_dual_f32_solve_goes_through_the_kernel(cuda_device):
+    calls = gs.CALLS
+    res = solve(examples.example05(),
+                Options(write_files=False, device="cuda", alg_phase1=Alg.DUAL,
+                        alg_phase2=Alg.DUAL, **F32))
+    assert res.status.name == "OPTIMAL"
+    assert gs.CALLS > calls
+
+
+def tall(seed, M, N, B):
+    """The random-instance recipe of tests/test_revised.py."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N)) / np.sqrt(N)
+    x0 = rng.random((B, N))
+    c = rng.standard_normal((B, N))
+    row_ub = x0 @ A.T + 0.3 + rng.random((B, M))
+    return (A, c, np.full((B, M), -np.inf), row_ub, np.zeros((B, N)),
+            np.full((B, N), 5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [((0, 6, 30, 8), np.float64, 1e-9),
+                                  ((11, 48, 320, 4), np.float32, 1e-3)])
+def test_revised_on_card_matches_cpu(cuda_device, case):
+    shape, dtype, tol = case
+    args = tall(*shape)
+    calls = rv.CALLS
+    card = rv.solve_batch_revised(*args, dtype=dtype, device=cuda_device)
+    assert rv.CALLS == calls + 1
+    cpu = rv.solve_batch_revised(*args, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(card.status, cpu.status)
+    np.testing.assert_allclose(card.obj, cpu.obj, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_revised_f32_runs_without_tf32(cuda_device, monkeypatch):
+    """Every pivot of a float32 revised solve sees allow_tf32 False, even
+    when the caller left it on; the caller's setting comes back after."""
+    seen = []
+    real = rv._rstep
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(rv, "_rstep", spy)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rv.solve_batch_revised(*tall(11, 48, 320, 4), dtype=np.float32,
+                               device=cuda_device)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert seen and not any(seen)

@@ -1,5 +1,6 @@
 """End-to-end parity of the port's solve() with the JAX package's on the
-examples the repo builds (bensolve_tpu.examples), on the CPU.
+examples the repo builds (bensolve_tpu.examples), on the CPU, for the
+primal and the dual Benson algorithm.
 
 Float64 (the default path, torch ops only): equal SolStatus, vertex and
 direction sets within 1e-7, equal LP and round counts, and the support
@@ -7,7 +8,8 @@ oracle of tests/test_e2e.py at 1e-7.  Float32 with BENSOLVE_FORCE_PALLAS=1
 (the kernel's route, which runs its plain version on the CPU): equal
 status and vertex sets within 1e-4 each way; float32 rounding may add or
 drop a near-duplicate vertex, so the sets are compared by distance, not
-by count.
+by count.  A tall random VLP (P LP columns >= 4x its rows) takes the
+revised simplex in both packages.
 """
 
 import numpy as np
@@ -18,11 +20,14 @@ import bensolve_tpu_torch as bt
 from bensolve_tpu import examples
 from bensolve_tpu.algs.driver import solve as jax_solve
 from bensolve_tpu.vlp.options import Options as JaxOptions
+from bensolve_tpu.vlp.options import Alg as JaxAlg
 from bensolve_tpu_torch.convert import problem_from_reference
-from bensolve_tpu_torch.lp import group_simplex
+from bensolve_tpu_torch.lp import group_simplex, revised
+from bensolve_tpu_torch.vlp.options import Alg
 from tests.test_e2e import check_support
 
 F32 = dict(lp_dtype="float32", eps_benson_phase1=1e-4, eps_benson_phase2=1e-4)
+DUAL = ("dual", "dual")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -33,11 +38,17 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def run_both(name, **kw):
-    vlp = getattr(examples, name)()
-    ref = jax_solve(vlp, JaxOptions(write_files=False, **kw))
-    got = bt.solve(problem_from_reference(vlp),
-                   bt.Options(write_files=False, device="cpu", **kw))
+def run_both(name, algs=("primal", "primal"), vlp=None, **kw):
+    """Solve one example (or ``vlp``) with both packages; ``algs``: the
+    phase-1 and phase-2 algorithms (-A, -a)."""
+    vlp = getattr(examples, name)() if vlp is None else vlp
+    a1, a2 = algs
+    ref = jax_solve(vlp, JaxOptions(
+        write_files=False, alg_phase1=JaxAlg(a1), alg_phase2=JaxAlg(a2),
+        **kw))
+    got = bt.solve(problem_from_reference(vlp), bt.Options(
+        write_files=False, device="cpu", alg_phase1=Alg(a1),
+        alg_phase2=Alg(a2), **kw))
     return ref, got
 
 
@@ -60,12 +71,9 @@ def assert_sets_close(a, b, tol, same_count=True):
     assert (d.min(axis=0) <= tol).all(), (a, b)
 
 
-@pytest.mark.parametrize("name", ["example01", "example02", "example03",
-                                  "example04", "example05", "example06",
-                                  "example08"])
-def test_f64_parity(name):
-    ref, got = run_both(name)
+def assert_f64_parity(ref, got):
     assert got.status.name == ref.status.name
+    assert got.swap == ref.swap
     assert (got.stats.lps, got.stats.rounds) == (ref.stats.lps,
                                                  ref.stats.rounds)
     if ref.status.name != "OPTIMAL":
@@ -77,17 +85,100 @@ def test_f64_parity(name):
     check_support(got, tol=1e-7)
 
 
-@pytest.mark.parametrize("name", ["example01", "example05", "example08"])
-def test_f32_kernel_route_parity(name, monkeypatch):
+EXAMPLES = ["example01", "example02", "example03", "example04", "example05",
+            "example06", "example08"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_f64_parity(name):
+    assert_f64_parity(*run_both(name))
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_dual_f64_parity(name):
+    """-A dual -a dual: the P1 template in both phases."""
+    assert_f64_parity(*run_both(name, DUAL))
+
+
+def test_dual_f64_example11_sets():
+    """example11 -A dual -a dual: equal status, vertex and direction sets
+    within 1e-7 and the oracle at 1e-7.  LP and round counts are not
+    held equal here: exact ties in its degenerate LPs are broken by
+    last-bit rounding, which differs between the packages, and the
+    batched phase 2 then takes the same cuts in another order (ROADMAP
+    Queue 3 h)."""
+    ref, got = run_both("example11", DUAL)
+    assert got.status.name == ref.status.name == "OPTIMAL"
+    assert_sets_close(got.primal_points, ref.primal_points, 1e-7)
+    assert_sets_close(_norm(got.primal_directions),
+                      _norm(ref.primal_directions), 1e-7)
+    assert_sets_close(got.dual_points, ref.dual_points, 1e-7)
+    check_support(got, tol=1e-7)
+
+
+@pytest.mark.parametrize("algs", [("primal", "dual"), ("dual", "primal")])
+def test_mixed_algorithms_f64_parity(algs):
+    """R/H extraction reads pair.primal of either phase-1 algorithm (the
+    lower image after phase1_dual)."""
+    assert_f64_parity(*run_both("example05", algs))
+
+
+def _preimages(result):
+    """{rounded vertex: pre-image} over both images of a solution."""
+    out = {}
+    for poly in (result.pair.primal, result.pair.dual):
+        for i in poly.live():
+            key = (bool(poly.ideal[i]),) + tuple(np.round(poly.data[i], 6))
+            out[key] = poly.primg[i, : poly.dim_primg].copy()
+    return out
+
+
+def test_dual_preimages_parity():
+    """solution=True on the dual phase 2: the pre-images of every vertex
+    and direction (x for upper-image points, (u, w) for lower-image
+    vertices, zero for lower-image directions) agree within 1e-9."""
+    ref, got = run_both("example05", DUAL, solution=True)
+    assert got.status.name == ref.status.name == "OPTIMAL"
+    a, b = _preimages(ref), _preimages(got)
+    assert a.keys() == b.keys() and a
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], rtol=1e-9, atol=1e-9,
+                                   err_msg=str(k))
+
+
+@pytest.mark.parametrize("algs", [("primal", "primal"), DUAL])
+def test_tall_vlp_takes_revised_route(algs):
+    """random_vlp(q=2, m=4, n=40): every batched LP of both packages is
+    tall, so each goes to the revised simplex."""
+    vlp = examples.random_vlp(q=2, m=4, n=40)
+    calls = revised.CALLS
+    ref, got = run_both(None, algs, vlp=vlp)
+    assert revised.CALLS > calls
+    assert_f64_parity(ref, got)
+
+
+def _f32_kernel_route_parity(name, algs, monkeypatch):
     monkeypatch.setenv("BENSOLVE_FORCE_PALLAS", "1")
     routed, calls = group_simplex.ROUTED, group_simplex.CALLS
-    ref, got = run_both(name, **F32)
+    ref, got = run_both(name, algs, **F32)
     assert got.status.name == ref.status.name == "OPTIMAL"
     assert group_simplex.ROUTED > routed
     assert group_simplex.CALLS == calls   # no kernel launch without a card
     assert_sets_close(got.primal_points, ref.primal_points, 1e-4,
                       same_count=False)
     check_support(got, tol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["example01", "example05", "example08"])
+def test_f32_kernel_route_parity(name, monkeypatch):
+    _f32_kernel_route_parity(name, ("primal", "primal"), monkeypatch)
+
+
+@pytest.mark.parametrize("name", ["example01", "example05", "example08"])
+def test_dual_f32_kernel_route_parity(name, monkeypatch):
+    """The dual algorithm's P1 rounds reach the kernel's route with one
+    shared warm basis (its warm path)."""
+    _f32_kernel_route_parity(name, DUAL, monkeypatch)
 
 
 @pytest.mark.slow
@@ -107,9 +198,11 @@ def test_cuda_device_without_card_raises(monkeypatch):
         bt.solve(vlp, bt.Options(write_files=False, device="cuda"))
 
 
-@pytest.mark.parametrize("opt", [dict(alg_phase1=bt.vlp.options.Alg.DUAL),
+@pytest.mark.parametrize("opt", [dict(profile_dir="x"),
                                  dict(mesh_axes=("dp",)),
-                                 dict(checkpoint_path="x")])
+                                 dict(checkpoint_path="x"),
+                                 dict(distributed=True),
+                                 dict(lp_ipm_min=1)])
 def test_unported_options_raise(opt):
     vlp = problem_from_reference(examples.example01())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
