@@ -3,15 +3,18 @@ and the solve_batch-compatible wrapper around both.
 
 The port of ``bensolve_tpu/lp/pallas_simplex.py``.  The Pallas kernel
 there pivots a GROUP of LPs to termination with their tableaus held in
-VMEM; here ``csrc/group_simplex.cu`` gives every LP its own thread block
-that loops over all its pivots inside one launch (see the note at the
-top of that file for what bounds it on the H100).
+VMEM; here ``csrc/group_simplex.cu`` gives every LP a thread-block
+cluster that holds its whole tableau in shared memory and loops over all
+its pivots inside one launch, or, for shapes no cluster holds, one
+thread block with the tableau in global memory (see the note at the top
+of that file for what bounds it on the H100).  ``plan`` picks the
+variant and the cluster size from the shape alone.
 
-* ``solve_batch_group``: the wrapper.  It launches the CUDA kernel for
+* ``solve_batch_group``: the wrapper.  It launches a CUDA kernel for
   CUDA tensors and runs the plain version only for CPU tensors.
 * ``solve_batch_group_reference``: the plain version, a line-by-line
   torch transcription of the Pallas kernel's loop, including the
-  group-wide pricing pass for any ``group`` (the CUDA kernel is the
+  group-wide pricing pass for any ``group`` (the CUDA kernels are the
   ``group=1`` case).
 * ``lp_batch_group``: padding, +-BIG encoding, the shared warm tableau
   and the primal/dual recovery, mirroring ``lp_batch_pallas``.
@@ -33,28 +36,66 @@ TOL_BND = 1e-5
 TOL_DJ = 1e-5
 TOL_PIV = 1e-6
 
-# launches of the CUDA kernel (one per solve_batch_group call on CUDA
-# tensors); a run that should have gone through the kernel reads it
+# kernel launches on CUDA tensors, per variant; CALLS is their sum.  A
+# run that should have gone through the kernel reads them
 CALLS = 0
+CALLS_CLUSTER = 0
+CALLS_GLOBAL = 0
 # lp_batch_group calls, on any device: the kernel's ROUTE was taken
 # (on the CPU that runs the plain version)
 ROUTED = 0
 
 # bytes allowed for one chunk's (B, Mp, NT) float32 tableau workspace
+# (the global-memory variant's)
 WORKSPACE_BYTES_BUDGET = 2 << 30
 # dynamic shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
 MAX_CHUNK = 256
+# threads per CTA of the cluster variant, kThreads in csrc/group_simplex.cu
+THREADS = 384
+# cluster sizes tried in order; 16 is the H100's non-portable maximum
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# group_simplex_cluster_f32's return when no cluster of the size fits
+NO_CLUSTER_FITS = -2
 
 
 def _pad128(x: int) -> int:
     return -(-x // 128) * 128
 
 
-def smem_bytes(Mp: int, NT: int) -> int:
-    """Dynamic shared memory of one block (kept in step with
-    smem_bytes<float> in csrc/group_simplex.cu)."""
-    return (7 * NT + 7 * Mp) * 4 + Mp * 4 + 2 * NT
+def smem_bytes(Mp: int, NT: int, C: int) -> int:
+    """Dynamic shared memory of one CTA, kept in step with
+    group_simplex_smem_bytes_f32 in csrc/group_simplex.cu: of a C-CTA
+    cluster holding the tableau for C >= 1 (an (Mp, NT/C + 4) slice of
+    W; four mbarriers; two buffers of exchange entries, 16 bytes for each
+    warp of the cluster, and of the entering column's 64 bytes of values;
+    two column buffers of Mp; seven column and six row vectors; pricing
+    partials; reduction scratch; basis; two byte flags per column), of
+    the global-memory variant for C == 0."""
+    if C == 0:
+        return (7 * NT + 7 * Mp) * 4 + Mp * 4 + 2 * NT
+    S = NT // C
+    n_float = (Mp * (S + 4) + 2 * Mp + 7 * S + 6 * Mp + 4 * THREADS
+               + 3 * 64)
+    n_int = Mp + 3 * 96
+    exchange = 4 * 8 + 2 * C * (THREADS // 32) * 16 + 2 * 64
+    return n_float * 4 + exchange + n_int * 4 + 2 * S
+
+
+def plan(Mp: int, NT: int) -> tuple[str, int] | None:
+    """The kernel variant for a padded shape: ("cluster", C) with the
+    smallest C whose CTAs hold the tableau in shared memory, else
+    ("global", 0) when the global-memory variant takes it, else None.
+    The cluster variant moves rows and columns in groups of four, so it
+    needs Mp and NT / C divisible by 4 (padded shapes always are)."""
+    for C in CLUSTER_SIZES:
+        if (Mp % 4 == 0 and NT % (4 * C) == 0
+                and smem_bytes(Mp, NT, C) <= SMEM_LIMIT):
+            return "cluster", C
+    if (smem_bytes(Mp, NT, 0) <= SMEM_LIMIT
+            and Mp * NT * 4 <= WORKSPACE_BYTES_BUDGET):
+        return "global", 0
+    return None
 
 
 def padded_shape(M: int, N: int) -> tuple[int, int]:
@@ -65,11 +106,8 @@ def padded_shape(M: int, N: int) -> tuple[int, int]:
 
 
 def shape_supported(M: int, N: int) -> bool:
-    """True when one LP's vectors fit a block's shared memory and one
-    LP's tableau fits the workspace budget."""
-    Mp, NT = padded_shape(M, N)
-    return (smem_bytes(Mp, NT) <= SMEM_LIMIT
-            and Mp * NT * 4 <= WORKSPACE_BYTES_BUDGET)
+    """True when a kernel variant takes the padded shape (``plan``)."""
+    return plan(*padded_shape(M, N)) is not None
 
 
 def _pick_chunk(Mp: int, NT: int) -> int:
@@ -107,7 +145,8 @@ def _check(W0, c, lb, ub, basis0, at_upper0):
     return B, M, NT
 
 
-def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter):
+def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter, *,
+                      variant: str | None = None, work=None):
     """Run the per-LP primal simplex over the batch.
 
     ``W0``: (Mp, NT) float32 shared starting tableau, E for a cold start
@@ -117,40 +156,82 @@ def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter):
     Returns (status (B,) int32, basis (B, Mp) int32, at_upper (B, NT)
     bool, iters (B,) int32) on the inputs' device.
 
-    CUDA tensors launch the kernel (a failed build or launch raises);
-    CPU tensors run the plain version."""
-    global CALLS
+    CUDA tensors launch the kernel variant ``plan`` picks (a failed
+    build or launch raises); ``variant="global"`` forces the global-
+    memory variant where it takes the shape, for measurement.  ``work``,
+    a (B, 3) int32 CUDA tensor, receives the cluster kernel's loop
+    steps, pricing passes and rank-1 updates per LP.  CPU tensors run
+    the plain version."""
+    global CALLS, CALLS_CLUSTER, CALLS_GLOBAL
     B, M, NT = _check(W0, c, lb, ub, basis0, at_upper0)
+    if variant not in (None, "global"):
+        raise ValueError(f"unknown kernel variant {variant!r}")
     dev = W0.device
     if dev.type == "cpu":
         return solve_batch_group_reference(W0, c, lb, ub, basis0, at_upper0,
                                            max_iter, group=1)
     if dev.type != "cuda":
         raise ValueError(f"group simplex kernel: unsupported device {dev}")
-    if smem_bytes(M, NT) > SMEM_LIMIT:
-        raise ValueError(f"group simplex kernel: shape (Mp={M}, NT={NT}) "
-                         f"needs {smem_bytes(M, NT)} B of shared memory")
+    chosen = ("global", 0) if variant == "global" else plan(M, NT)
+    if chosen is None or smem_bytes(M, NT, chosen[1]) > SMEM_LIMIT:
+        raise ValueError(f"group simplex kernel: no variant takes the shape "
+                         f"(Mp={M}, NT={NT})")
+    kind, C = chosen
+    if work is not None and (kind != "cluster" or work.shape != (B, 3)
+                             or work.dtype != torch.int32
+                             or work.device != dev):
+        raise ValueError("work: a (B, 3) int32 tensor on the inputs' device, "
+                         "for the cluster variant only")
+    if kind == "cluster" and W0.data_ptr() % 16:
+        raise ValueError("W0 must be 16-byte aligned (vector loads)")
     lib = _library()
-    if lib.group_simplex_smem_bytes_f32(M, NT) != smem_bytes(M, NT):
+    if lib.group_simplex_smem_bytes_f32(M, NT, C) != smem_bytes(M, NT, C):
         raise RuntimeError("smem_bytes disagrees with the built kernel's")
     with torch.cuda.device(dev):
-        W = torch.empty((B, M, NT), dtype=torch.float32, device=dev)
         status = torch.empty(B, dtype=torch.int32, device=dev)
         basis = torch.empty((B, M), dtype=torch.int32, device=dev)
         at_upper = torch.empty((B, NT), dtype=torch.bool, device=dev)
         iters = torch.empty(B, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.group_simplex_f32(
-            W0.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
-            basis0.data_ptr(), at_upper0.data_ptr(), W.data_ptr(),
-            status.data_ptr(), basis.data_ptr(), at_upper.data_ptr(),
-            iters.data_ptr(), B, M, NT, int(max_iter),
-            _max_loop(int(max_iter)), stream)
+        ptrs = (W0.data_ptr(), c.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+                basis0.data_ptr(), at_upper0.data_ptr())
+        outs = (status.data_ptr(), basis.data_ptr(), at_upper.data_ptr(),
+                iters.data_ptr())
+        loop = (int(max_iter), _max_loop(int(max_iter)), stream)
+        if kind == "cluster":
+            err = lib.group_simplex_cluster_f32(
+                *ptrs, *outs, 0 if work is None else work.data_ptr(), B, M,
+                NT, C, *loop)
+        else:
+            W = torch.empty((B, M, NT), dtype=torch.float32, device=dev)
+            err = lib.group_simplex_global_f32(*ptrs, W.data_ptr(), *outs, B,
+                                               M, NT, *loop)
+        if err == NO_CLUSTER_FITS:
+            raise RuntimeError(f"group_simplex_cluster_f32: no cluster of {C} "
+                               f"CTAs fits the card at Mp={M}, NT={NT} "
+                               f"(cudaOccupancyMaxActiveClusters is 0)")
         if err != 0:
-            raise RuntimeError(f"group_simplex_f32 launch failed: CUDA "
-                               f"error {err} (B={B}, Mp={M}, NT={NT})")
+            raise RuntimeError(f"group_simplex {kind} launch failed: CUDA "
+                               f"error {err} (B={B}, Mp={M}, NT={NT}, C={C})")
         CALLS += 1
+        if kind == "cluster":
+            CALLS_CLUSTER += 1
+        else:
+            CALLS_GLOBAL += 1
     return status, basis, at_upper, iters
+
+
+def max_active_clusters(Mp: int, NT: int, C: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel with C-CTA
+    clusters at this shape."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.group_simplex_max_active_clusters_f32(Mp, NT, C,
+                                                    ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {err} (Mp={Mp}, NT={NT}, C={C})")
+    return out.value
 
 
 def _library():
@@ -159,10 +240,15 @@ def _library():
     lib = _build.load("group_simplex")
     if not hasattr(lib, "_bound"):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.group_simplex_f32.argtypes = [p] * 11 + [i] * 4 + [ll, p]
-        lib.group_simplex_f32.restype = ctypes.c_int
-        lib.group_simplex_smem_bytes_f32.argtypes = [i, i]
+        lib.group_simplex_cluster_f32.argtypes = [p] * 11 + [i] * 5 + [ll, p]
+        lib.group_simplex_cluster_f32.restype = ctypes.c_int
+        lib.group_simplex_global_f32.argtypes = [p] * 11 + [i] * 4 + [ll, p]
+        lib.group_simplex_global_f32.restype = ctypes.c_int
+        lib.group_simplex_smem_bytes_f32.argtypes = [i, i, i]
         lib.group_simplex_smem_bytes_f32.restype = ctypes.c_size_t
+        lib.group_simplex_max_active_clusters_f32.argtypes = [
+            i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.group_simplex_max_active_clusters_f32.restype = ctypes.c_int
         lib._bound = True
     return lib
 
@@ -354,13 +440,14 @@ def lp_batch_group(A, c, row_lb, row_ub, col_lb, col_ub, *,
     """solve_batch-compatible wrapper around the kernel (float32; M
     padded as in the tableau path, NT to 128s, the batch to a power-of-
     two multiple of the group).  ``group``: LPs per pricing group of the
-    plain version (CPU only; the CUDA kernel is group 1).  Batches
+    plain version (CPU only; the CUDA kernels are group 1).  Batches
     larger than the workspace budget allows are solved in chunks."""
     global ROUTED
     if group is None:
         group = 1
     if torch.device(device).type == "cuda" and group != 1:
-        raise ValueError("the CUDA kernel runs one LP per block (group=1)")
+        raise ValueError("the CUDA kernels run one LP per block or cluster "
+                         "(group=1)")
     dev = sx.resolve_device(device)
     dtype = np.float32
     prep = sx._prepare_A(A, dtype, dev)

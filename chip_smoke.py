@@ -6,13 +6,23 @@ Phases, one output line (or block) each:
 
 1. environment: torch/CUDA versions, the card's name and power limit,
    nvcc, triton, the native polytope engine; TF32 matmuls switched off;
-2. build: the per-LP simplex kernel from lp/csrc/group_simplex.cu;
-3. kernel vs its plain PyTorch version on the card, cold and shared-warm
-   random batches at M=N=16 (B=8) and at example10's P2 shape (Mp=384,
-   NT=768, B=256), timed with CUDA events;
+2. build: the per-LP simplex kernel from lp/csrc/group_simplex.cu, with
+   ptxas' registers and spills of both variants (cluster, global), their
+   shared-memory bytes and cudaOccupancyMaxActiveClusters at example10's
+   P2 shape;
+3. kernel vs its plain PyTorch version on the card: each variant at its
+   shape (clusters of 1, 2, 4, 8 and 16 CTAs, the global-memory variant
+   at M=N=700), cold, and shared-warm at M=N=16 and at example10's P2
+   shape (Mp=384, NT=768, B=256), where the cluster and the global
+   variant are also timed in turns on the same inputs (CUDA events) and
+   the roofline bound is computed from the cluster kernel's own counts
+   of pricing passes and rank-1 updates;
 4. the main path at float32 (the kernel's route): solve() on example01,
-   05, 08 and 10, with the kernel's launch count reset just before and
-   read just after, held to the support-function oracle at 1e-3;
+   05, 08 and 10, with the launch counts of both variants reset just
+   before and read just after (per example), the kernel's share of the
+   phase wall, and the support-function oracle at 1e-3;
+   then the same on random_vlp(q=2, m=700, n=256), whose LPs no cluster
+   holds: the global-memory variant's path, its launches counted alone;
 5. the main path at the default float64 (torch ops) on example10, held
    to the support oracle at 1e-4;
 6. the dual Benson algorithm (-A dual -a dual) at float64 on example10:
@@ -20,8 +30,9 @@ Phases, one output line (or block) each:
    phase 5 within 1e-6;
 7. the dual algorithm at float32 on example01, 05, 08 and 10, the
    kernel's warm route (every P1 round starts from one shared basis):
-   its launches counted over this phase alone, and the kernel's share of
-   the phase's wall time from CUDA events around the launches;
+   each variant's launches counted over this phase alone (per example),
+   and the kernel's share of the phase's wall time from CUDA events
+   around the launches;
 8. a tall VLP (every LP has N >= 4M) through the revised simplex at
    float64 with both algorithms: the revised route taken, the tableau
    and the kernel untouched, the oracle at 1e-4, and the two upper
@@ -31,11 +42,13 @@ Phases, one output line (or block) each:
    batches (float64 to 1e-9, float32 to 1e-3);
 10. the result lines.
 
-The second-to-last line is one JSON object with the kernels of the path
-(name, route, source, the TPU kernel it replaces, launches in phase 4
-and, as launches_dual_f32, in phase 7, max |kernel - plain| on the
-phase-3 batch, kernel and plain times); the last line is {"ok": true,
-"device": {...}}.  Any failed phase raises and exits non-zero before
+The second-to-last line is one JSON object with the kernel's two
+variants (name, route, source, the TPU kernel it replaces, launches on
+its main path: the examples of phase 4 for the cluster variant, the
+large VLP of phase 4 for the global one; launches_dual_f32 in phase 7;
+max |obj kernel - plain|,
+kernel, plain and bound times at example10's P2 shape, cold, and the
+kernel's time warm); the last line is {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero before
 those lines.  Without a CUDA device, or without the package beside this
 script, it exits non-zero and prints no result.
 """
@@ -57,9 +70,14 @@ DUAL_KW = dict(alg_phase1="dual", alg_phase2="dual")
 # the tall phase's VLP: examples.random_vlp(q, m, n); its P2 LP is
 # (m+q+q+1) x (n+q+1), tall by a factor of about n/m
 TALL = (2, 100, 1000)
+# the large phase's VLP: its P2 and P1 LPs (705x259, 703x258) pad to
+# Mp=768, NT=1152, a 3.5 MB float32 tableau that no cluster holds, so
+# its kernel launches take the global-memory variant
+LARGE = (2, 700, 256)
 KERNEL_SOURCE = "bensolve_tpu_torch/lp/csrc/group_simplex.cu"
 KERNEL_REPLACES = "bensolve_tpu/lp/pallas_simplex.py:55"
 REL_TOL = 1e-4       # float32 kernel vs plain: other summation orders
+EX10_P2 = (350, 347)  # example10's P2 LP, padded to Mp=384, NT=768
 
 
 def log(*args):
@@ -99,15 +117,37 @@ def phase_environment():
 
 
 def phase_build():
-    from bensolve_tpu_torch.lp import _build, group_simplex
+    from bensolve_tpu_torch.lp import _build, group_simplex as gs
 
     t0 = time.perf_counter()
-    group_simplex._library()
+    gs._library()
     seconds, nvcc_log = _build.build_info("group_simplex")
-    ptxas = [ln for ln in nvcc_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    per_kernel, name = {}, None
+    for ln in nvcc_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ("cluster" if "group_simplex_cluster_kernel" in ln
+                    else "global")
+        elif name and ("registers" in ln or "spill" in ln):
+            per_kernel.setdefault(name, []).append(ln.split(":", 1)[-1]
+                                                   .strip())
     log(f"[build] group_simplex for sm_90a: nvcc {seconds:.1f} s, load "
-        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ptxas))
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in ("cluster", "global"):
+        if name not in per_kernel:
+            raise AssertionError(f"ptxas reported no {name} kernel")
+        log(f"[build] {name} kernel: " + " | ".join(per_kernel[name]))
+    Mp, NT = gs.padded_shape(*EX10_P2)
+    kind, C = gs.plan(Mp, NT)
+    if (kind, C) != ("cluster", 8):
+        raise AssertionError(f"example10's P2 shape plans {kind} C={C}")
+    active = gs.max_active_clusters(Mp, NT, C)
+    log(f"[build] example10 P2 (Mp={Mp}, NT={NT}): cluster C={C}, "
+        f"{gs.smem_bytes(Mp, NT, C)} B dynamic shared memory per CTA, "
+        f"cudaOccupancyMaxActiveClusters {active}; global variant "
+        f"{gs.smem_bytes(Mp, NT, 0)} B per block plus a "
+        f"{Mp * NT * 4} B tableau per LP in global memory")
+    if active < 1:
+        raise AssertionError("no cluster fits at example10's P2 shape")
 
 
 def make(M, N, B, seed):
@@ -137,42 +177,18 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def _compare(name, args, start_basis, reps):
-    """Kernel and plain version on the same device inputs: equal status
-    per LP, obj / x / row_dual within REL_TOL relative, timings."""
+def _launches():
     from bensolve_tpu_torch.lp import group_simplex as gs
 
-    dev = torch.device("cuda")
-    inputs = {}
-    real_wrapper = gs.solve_batch_group
+    return {"cluster": gs.CALLS_CLUSTER, "global": gs.CALLS_GLOBAL}
 
-    def capture(*a):
-        inputs["a"] = a
-        return real_wrapper(*a)
 
-    gs.solve_batch_group = capture
-    try:
-        ker = gs.lp_batch_group(*args, start_basis=start_basis, device=dev)
-    finally:
-        gs.solve_batch_group = real_wrapper
-    W0, c, lb, ub, basis0, atup, max_iter = inputs["a"]
-    st_k, basis_k, atup_k, it_k = gs.solve_batch_group(*inputs["a"])
-    st_p, basis_p, atup_p, it_p = gs.solve_batch_group_reference(
-        *inputs["a"], group=1)
-    torch.cuda.synchronize()
-    st_k, st_p = st_k.cpu().numpy(), st_p.cpu().numpy()
-    if not (st_k == st_p).all():
-        raise AssertionError(f"{name}: kernel status {st_k} != plain {st_p}")
-    # the plain version's solutions, recovered exactly as the wrapper does
-    plain = _recover(gs, args, start_basis, st_p, basis_p, atup_p, it_p, dev)
-    B = args[1].shape[0]
-    it_k, it_p = it_k.cpu().numpy()[:B], it_p.cpu().numpy()[:B]
-    same_basis = (basis_k.cpu().numpy()[:B] == basis_p.cpu().numpy()[:B]
-                  ).all(axis=1)
+def _errors(name, ker, plain, same_basis):
+    """Relative and absolute obj / x / row_dual differences, raising past
+    REL_TOL: obj on every optimal LP; x and row_dual where both ended in
+    the same basis (an LP that is dual degenerate within the float32
+    tolerance has several optimal vertices with one objective value)."""
     ok = ker.status == 1
-    # obj on every optimal LP; x and row_dual where both ended in the same
-    # basis (an LP that is dual degenerate within the float32 tolerance
-    # has several optimal vertices with one objective value)
     errs = {}
     for field, rows in (("obj", ok), ("x", ok & same_basis),
                         ("row_dual", ok & same_basis)):
@@ -185,29 +201,132 @@ def _compare(name, args, start_basis, reps):
         if rel > REL_TOL:
             raise AssertionError(f"{name}: {field} differs by {rel:.2e} "
                                  f"relative (limit {REL_TOL})")
+    return errs
+
+
+def _bound_ms(inputs, work):
+    """The least time the card could take for this batch: every input
+    read once and every output written once at 3.35 TB/s, against the
+    flops this run's data needs at the 67 TFLOP/s float32 peak (2 Mp NT
+    for each of the initial xb and d2 sums, each pricing pass and each
+    rank-1 update, from the kernel's own counts).  (ms, bound_by, mean
+    loop steps, pricing-pass share of the steps)."""
+    W0, c = inputs[0], inputs[1]
+    Mp, NT = W0.shape
+    B = c.shape[0]
+    steps, passes, pivots = work.cpu().numpy().astype(np.int64).T
+    nbytes = (Mp * NT * 4 + B * NT * (3 * 4 + 1) + Mp * 4
+              + B * (4 + Mp * 4 + NT + 4))
+    flops = 2.0 * Mp * NT * float((2 + passes + pivots).sum())
+    t_bytes, t_flops = nbytes / 3.35e12, flops / 67e12
+    return (max(t_bytes, t_flops) * 1e3,
+            "bytes" if t_bytes >= t_flops else "operations",
+            float(steps.mean()), float(passes.sum() / max(1, steps.sum())))
+
+
+def _compare(name, args, start_basis, reps, variant=None, ab=False):
+    """The kernel (the planned variant, or the forced one) and the plain
+    version on the same device inputs: equal status per LP, obj / x /
+    row_dual within REL_TOL relative, the launch on the expected variant,
+    timings.  With ``ab`` the two variants are timed in turns (cluster,
+    global, global, cluster) on these inputs and the roofline bound is
+    computed.  Returns a dict of the numbers."""
+    from bensolve_tpu_torch.lp import group_simplex as gs
+
+    dev = torch.device("cuda")
+    inputs = {}
+    real_wrapper = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        inputs["a"] = a
+        return real_wrapper(*a, variant=variant)
+
+    gs.solve_batch_group = capture
+    before = _launches()
+    try:
+        ker = gs.lp_batch_group(*args, start_basis=start_basis, device=dev)
+    finally:
+        gs.solve_batch_group = real_wrapper
+    torch.cuda.synchronize()
+    W0, c, lb, ub, basis0, atup, max_iter = inputs["a"]
+    kind, C = ("global", 0) if variant else gs.plan(*W0.shape)
+    after = _launches()
+    launched = {k: after[k] - before[k] for k in after}
+    if launched != {"cluster": int(kind == "cluster"),
+                    "global": int(kind == "global")}:
+        raise AssertionError(f"{name}: launches {launched}, expected one "
+                             f"{kind}")
+    st_p, basis_p, atup_p, it_p = gs.solve_batch_group_reference(
+        *inputs["a"], group=1)
+    torch.cuda.synchronize()
+    if not (ker.status == st_p.cpu().numpy()[:ker.status.size]).all():
+        raise AssertionError(f"{name}: kernel status {ker.status} != plain "
+                             f"{st_p.cpu().numpy()}")
+    # the plain version's solutions, recovered exactly as the wrapper does
+    plain = _recover(gs, args, start_basis, st_p, basis_p, atup_p, it_p, dev)
+    B = args[1].shape[0]
+    it_k, it_p = ker.iters, plain.iters
+    same_basis = (ker.basis == plain.basis).all(axis=1)
+    errs = _errors(name, ker, plain, same_basis)
     band = float(np.abs(it_k - it_p).max())
     if band > 0.25 * max(1, it_p.max()) + 16:
         raise AssertionError(f"{name}: iteration counts differ by {band}")
-    ms = _time_ms(lambda: gs.solve_batch_group(*inputs["a"]), reps)
-    plain_ms = _time_ms(lambda: gs.solve_batch_group_reference(
+    out = {"err": errs["obj"][1], "kind": kind, "C": C}
+    run = lambda v=variant: gs.solve_batch_group(*inputs["a"], variant=v)
+    extra = ""
+    if ab:
+        work = torch.zeros(c.shape[0], 3, dtype=torch.int32,
+                           device=dev)
+        gs.solve_batch_group(*inputs["a"], work=work)
+        out["bound_ms"], out["bound_by"], steps, pass_share = _bound_ms(
+            inputs["a"], work)
+        g_out = gs.solve_batch_group(*inputs["a"], variant="global")
+        g = _recover(gs, args, start_basis, *g_out, dev)
+        if not (g.status == plain.status).all():
+            raise AssertionError(f"{name}: global variant status "
+                                 f"{g.status} != plain {plain.status}")
+        out["err_global"] = _errors(name + " (global)", g, plain,
+                                    (g.basis == plain.basis).all(axis=1)
+                                    )["obj"][1]
+        runs = {"cluster": [], "global": []}
+        for v in ("cluster", "global", "global", "cluster"):
+            runs[v].append(_time_ms(lambda: run(None if v == "cluster"
+                                                else "global"),
+                                    reps if v == "cluster" else 1))
+        out["ms"] = float(np.mean(runs["cluster"]))
+        out["ms_global"] = float(np.mean(runs["global"]))
+        extra = (f"; in turns cluster {runs['cluster'][0]:.3f}, global "
+                 f"{runs['global'][0]:.3f}, {runs['global'][1]:.3f}, "
+                 f"cluster {runs['cluster'][1]:.3f} ms; global variant "
+                 f"status equal, obj within {out['err_global']:.1e}; "
+                 f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}; mean "
+                 f"loop steps {steps:.1f}, pricing passes on "
+                 f"{pass_share:.3f} of steps) = "
+                 f"{out['bound_ms'] / out['ms']:.4f} of the cluster "
+                 f"kernel's time")
+    else:
+        out["ms"] = _time_ms(run, reps)
+    out["plain_ms"] = _time_ms(lambda: gs.solve_batch_group_reference(
         *inputs["a"], group=1), max(1, reps // 4))
-    log(f"[kernel] {name}: B={B} Mp={W0.shape[0]} NT={W0.shape[1]} "
-        f"status equal on {B}/{B} LPs ({int(ok.sum())} optimal); "
-        f"rel err obj {errs['obj'][0]:.1e} x {errs['x'][0]:.1e} "
-        f"row_dual {errs['row_dual'][0]:.1e}; identical basis+iters on "
+    log(f"[kernel] {name}: {kind} C={C} B={B} Mp={W0.shape[0]} "
+        f"NT={W0.shape[1]} status equal on {B}/{B} LPs "
+        f"({int((ker.status == 1).sum())} optimal); rel err obj "
+        f"{errs['obj'][0]:.1e} x {errs['x'][0]:.1e} row_dual "
+        f"{errs['row_dual'][0]:.1e}; identical basis+iters on "
         f"{np.mean(same_basis & (it_k == it_p)):.3f} of LPs (x and row_dual "
         f"compared on the {int(same_basis.sum())} with equal basis); iters "
         f"max |kernel-plain| {band:.0f} (band 0.25*max+16); mean iters "
-        f"kernel {it_k.mean():.1f} plain {it_p.mean():.1f}; "
-        f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms per solve")
-    return errs["obj"][1], ms, plain_ms
+        f"kernel {it_k.mean():.1f} plain {it_p.mean():.1f}; kernel "
+        f"{out['ms']:.3f} ms plain {out['plain_ms']:.3f} ms per solve"
+        + extra)
+    return out
 
 
 def _recover(gs, args, start_basis, status, basis, at_upper, iters, dev):
-    """lp_batch_group's recovery applied to the plain version's output."""
+    """lp_batch_group's recovery applied to given kernel outputs."""
     real = gs.solve_batch_group
-    gs.solve_batch_group = lambda *a: (torch.as_tensor(status, device=dev),
-                                       basis, at_upper, iters)
+    gs.solve_batch_group = lambda *a, **kw: (
+        torch.as_tensor(status, device=dev), basis, at_upper, iters)
     try:
         return gs.lp_batch_group(*args, start_basis=start_basis, device=dev)
     finally:
@@ -215,7 +334,9 @@ def _recover(gs, args, start_basis, status, basis, at_upper, iters, dev):
 
 
 def phase_kernel():
-    """Returns (max |obj err|, kernel ms, plain ms) at the ex10 shape."""
+    """Each variant against the plain version at its shape; returns the
+    numbers at example10's P2 shape, cold and warm, and the global
+    variant's obj error at its own shape."""
     from bensolve_tpu_torch.lp import group_simplex as gs
 
     small = make(16, 16, 8, 0)
@@ -224,14 +345,17 @@ def phase_kernel():
     _compare("M=N=16 cold", small, None, 20)
     _compare("M=N=16 shared warm", small,
              (cold.basis[i0], cold.at_upper[i0]), 20)
-    big = make(350, 347, 256, 1)
-    assert gs.padded_shape(350, 347) == (384, 768)
-    err, ms, plain_ms = _compare("ex10 P2 shape cold", big, None, 3)
+    for M, B in ((160, 16), (200, 16), (500, 8)):
+        _compare(f"M=N={M} cold", make(M, M, B, 0), None, 3)
+    glob = _compare("M=N=700 cold", make(700, 700, 4, 0), None, 1)
+    big = make(*EX10_P2, 256, 1)
+    assert gs.padded_shape(*EX10_P2) == (384, 768)
+    ex10 = _compare("ex10 P2 shape cold", big, None, 3, ab=True)
     warm = gs.lp_batch_group(*big, device="cuda")
     j0 = int(np.flatnonzero(warm.status == 1)[0])
-    _compare("ex10 P2 shape shared warm", big,
-             (warm.basis[j0], warm.at_upper[j0]), 3)
-    return err, ms, plain_ms
+    ex10_w = _compare("ex10 P2 shape shared warm", big,
+                      (warm.basis[j0], warm.at_upper[j0]), 3, ab=True)
+    return ex10, ex10_w, glob
 
 
 def canonical(result):
@@ -364,9 +488,70 @@ def _report(tag, name, r, wall, tol):
         f"(limit {tol:g})")
 
 
+class _KernelClock:
+    """Wraps the kernel's wrapper with CUDA events around every launch
+    and resets the launch counts of both variants; ``launches`` holds
+    them per solve."""
+
+    def __init__(self):
+        from bensolve_tpu_torch.lp import group_simplex as gs
+
+        self.gs, self.real, self.events = gs, gs.solve_batch_group, []
+        self.launches = {}
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = self.real(*a, **kw)
+            t1.record()
+            self.events.append((t0, t1))
+            return out
+
+        self.gs.solve_batch_group = timed
+        self.gs.CALLS = self.gs.CALLS_CLUSTER = self.gs.CALLS_GLOBAL = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.gs.solve_batch_group = self.real
+
+    def solve(self, name, opt, vlp=None):
+        before = _launches()
+        r, wall = _solve(name, opt, vlp=vlp)
+        after = _launches()
+        self.launches[name] = {k: after[k] - before[k] for k in after}
+        return r, wall
+
+    def seconds(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+    def total(self):
+        return {k: sum(v[k] for v in self.launches.values())
+                for k in ("cluster", "global")}
+
+    def report(self, tag, phase_wall, variant="cluster"):
+        kernel_s = self.seconds()
+        per = "; ".join(f"{n} {v['cluster']}/{v['global']}"
+                        for n, v in self.launches.items())
+        tot = self.total()
+        log(f"[{tag}] group_simplex launches cluster/global: {per}; total "
+            f"{tot['cluster']}/{tot['global']} (CALLS {self.gs.CALLS}); "
+            f"kernel {kernel_s:.3f} s of {phase_wall:.2f} s phase wall "
+            f"({kernel_s / phase_wall:.3f}, CUDA events around the "
+            f"launches)")
+        if tot[variant] <= 0:
+            raise AssertionError(f"{tag}: the {variant} kernel was launched "
+                                 f"0 times")
+        if self.gs.CALLS != tot["cluster"] + tot["global"]:
+            raise AssertionError(f"{tag}: CALLS is not the variants' sum")
+        return tot
+
+
 def phase_main_f32():
-    """The float32 main path; returns the kernel's launch count."""
-    from bensolve_tpu_torch.lp import dual_simplex, group_simplex
+    """The float32 main path; returns each variant's launch count."""
+    from bensolve_tpu_torch.lp import dual_simplex
     from bensolve_tpu_torch.vlp.options import Options
 
     kept_devices = set()
@@ -379,16 +564,15 @@ def phase_main_f32():
         return out
 
     dual_simplex.solve_batch_dual = watch
-    group_simplex.CALLS = 0
     runs = []
     try:
-        for name in ("example01", "example05", "example08", "example10"):
-            r, wall = _solve(name, Options(write_files=False, device="cuda",
-                                           **F32_KW))
-            runs.append((name, r, wall))
+        with _KernelClock() as clock:
+            for name in ("example01", "example05", "example08", "example10"):
+                r, wall = clock.solve(name, Options(
+                    write_files=False, device="cuda", **F32_KW))
+                runs.append((name, r, wall))
     finally:
         dual_simplex.solve_batch_dual = real_dual
-    launches = group_simplex.CALLS
     for name, r, wall in runs:
         if r.status.name != "OPTIMAL":
             raise AssertionError(f"{name} float32: status {r.status}")
@@ -398,13 +582,29 @@ def phase_main_f32():
             f"LPs {r.stats.lps} rounds {r.stats.rounds} pivots "
             f"{r.stats.pivots}; support oracle worst gap {gap:.1e} "
             f"(limit 1e-3)")
-    if launches <= 0:
-        raise AssertionError("float32 main path launched the kernel 0 times")
     if kept_devices != {"cuda"}:
         raise AssertionError(f"kept tableau devices {kept_devices}")
-    log(f"[main f32] group_simplex kernel launches: {launches}; kept "
-        f"tableau device: {sorted(kept_devices)}")
-    return launches
+    log(f"[main f32] kept tableau device: {sorted(kept_devices)}")
+    return clock.report("main f32", sum(w for _, _, w in runs))
+
+
+def phase_large_f32():
+    """The float32 main path on a VLP whose LPs no cluster holds; returns
+    each variant's launch count."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.lp import group_simplex as gs
+
+    q, m, n = LARGE
+    for shape in ((m + 2 * q + 1, n + q + 1), (m + q + 1, n + q)):
+        if gs.plan(*gs.padded_shape(*shape)) != ("global", 0):
+            raise AssertionError(f"large phase: LP {shape} plans "
+                                 f"{gs.plan(*gs.padded_shape(*shape))}")
+    name = f"random_vlp(q={q}, m={m}, n={n})"
+    with _KernelClock() as clock:
+        r, wall = clock.solve(name, _options(**F32_KW),
+                              vlp=examples.random_vlp(q=q, m=m, n=n))
+    _report("large f32", name, r, wall, 1e-3)
+    return clock.report("large f32", wall, variant="global")
 
 
 def phase_main_f64():
@@ -427,45 +627,19 @@ def phase_dual_f64(primal):
 
 def phase_dual_f32():
     """The dual algorithm at float32, the kernel's warm route; returns
-    the kernel's launch count in this phase."""
-    from bensolve_tpu_torch.lp import group_simplex
-
-    events = []
-    real = group_simplex.solve_batch_group
-
-    def timed(*a):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = real(*a)
-        t1.record()
-        events.append((t0, t1))
-        return out
-
-    group_simplex.solve_batch_group = timed
-    group_simplex.CALLS = 0
+    each variant's launch count in this phase."""
     runs = []
-    torch.cuda.synchronize()
-    t_phase = time.perf_counter()
-    try:
+    with _KernelClock() as clock:
+        torch.cuda.synchronize()
+        t_phase = time.perf_counter()
         for name in ("example01", "example05", "example08", "example10"):
-            r, wall = _solve(name, _options(**F32_KW, **DUAL_KW))
+            r, wall = clock.solve(name, _options(**F32_KW, **DUAL_KW))
             runs.append((name, r, wall))
-    finally:
-        group_simplex.solve_batch_group = real
-    torch.cuda.synchronize()
-    phase_wall = time.perf_counter() - t_phase
-    launches = group_simplex.CALLS
+        torch.cuda.synchronize()
+        phase_wall = time.perf_counter() - t_phase
     for name, r, wall in runs:
         _report("dual f32", name, r, wall, 1e-3)
-    if launches <= 0:
-        raise AssertionError("the dual float32 path launched the kernel 0 "
-                             "times")
-    kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
-    log(f"[dual f32] group_simplex kernel launches: {launches}; kernel "
-        f"{kernel_s:.3f} s of {phase_wall:.2f} s phase wall "
-        f"({kernel_s / phase_wall:.3f}, CUDA events around the launches)")
-    return launches
+    return clock.report("dual f32", phase_wall)
 
 
 def phase_tall():
@@ -581,19 +755,31 @@ def main() -> int:
         return 1
     phase_environment()
     phase_build()
-    err, ms, plain_ms = phase_kernel()
+    ex10, ex10_w, glob = phase_kernel()
     launches = phase_main_f32()
+    launches_large = phase_large_f32()
     primal = phase_main_f64()
     phase_dual_f64(primal)
     launches_dual = phase_dual_f32()
     phase_tall()
     phase_revised_vs_cpu()
     log(smi_line())
-    log(json.dumps({"kernels": [{
-        "name": "group_simplex", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "launches_dual_f32": launches_dual,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}]}))
+    common = {"route": "cuda", "source": KERNEL_SOURCE,
+              "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
+              "bound_ms": ex10["bound_ms"], "bound_by": ex10["bound_by"],
+              "library_ms": None}
+    log(json.dumps({"kernels": [
+        dict(name="group_simplex_cluster", **common,
+             launches=launches["cluster"],
+             launches_dual_f32=launches_dual["cluster"],
+             cluster_size=ex10["C"], max_abs_err=ex10["err"],
+             ms=ex10["ms"], ms_warm=ex10_w["ms"]),
+        dict(name="group_simplex_global", **common,
+             launches=launches_large["global"],
+             launches_f32_examples=launches["global"],
+             launches_dual_f32=launches_dual["global"],
+             max_abs_err=max(ex10["err_global"], glob["err"]),
+             ms=ex10["ms_global"], ms_warm=ex10_w["ms_global"])]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
-"""The port on the card: the CUDA kernel builds, launches on the main
-path (primal and dual algorithm) and agrees with its plain PyTorch
-version; the revised simplex gives on the card what it gives on the CPU,
-with TF32 off.
+"""The port on the card: the CUDA kernel's two variants build, launch
+on the main path (primal and dual algorithm) and agree with their plain
+PyTorch version at one shape per variant and cluster size; the revised
+simplex gives on the card what it gives on the CPU, with TF32 off.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -44,26 +44,93 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (M, N, B, variant, C): one shape per kernel variant and cluster size;
+# (350, 347) is example10's P2 shape
+VARIANT_SHAPES = [(16, 16, 8, "cluster", 1), (160, 160, 16, "cluster", 2),
+                  (200, 200, 16, "cluster", 4), (350, 347, 16, "cluster", 8),
+                  (500, 500, 8, "cluster", 16), (700, 700, 4, "global", 0)]
+
+
+def _kernel_and_plain(args, start, dev, monkeypatch):
+    """The kernel's LPResult and the plain version's, the latter run on
+    the same device inputs and recovered exactly as the wrapper does;
+    plus the launches of each variant during the kernel's solve."""
+    captured = {}
+    real = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        captured["a"] = a
+        return real(*a, **kw)
+
+    monkeypatch.setattr(gs, "solve_batch_group", capture)
+    before = (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL, gs.CALLS)
+    ker = gs.lp_batch_group(*args, device=dev, start_basis=start)
+    torch.cuda.synchronize()
+    launched = tuple(x - y for x, y in zip(
+        (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL, gs.CALLS), before))
+    out = gs.solve_batch_group_reference(*captured["a"], group=1)
+    monkeypatch.setattr(gs, "solve_batch_group", lambda *a, **kw: out)
+    plain = gs.lp_batch_group(*args, device=dev, start_basis=start)
+    monkeypatch.setattr(gs, "solve_batch_group", real)
+    return ker, plain, launched
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("warm", [False, True])
-def test_kernel_matches_plain_version_on_card(cuda_device, warm):
-    """Equal status per LP; obj within 1e-4 (float32, the kernel and the
-    plain version sum in other orders)."""
-    args = make(16, 16, 8, seed=0)
+@pytest.mark.parametrize("shape", VARIANT_SHAPES,
+                         ids=[f"{v}{c}-M{m}" for m, _, _, v, c in VARIANT_SHAPES])
+def test_kernel_matches_plain_version_on_card(cuda_device, shape, warm,
+                                              monkeypatch):
+    """Each variant against the plain version on its shape, cold and from
+    one shared warm basis: equal status per LP; obj within 1e-4 (float32,
+    the kernel and the plain version sum in other orders); at M=N=16
+    (sequential sums) the same basis and iterations on every LP.  The
+    launch lands on the planned variant and only there."""
+    M, N, B, kind, C = shape
+    assert gs.plan(*gs.padded_shape(M, N)) == (kind, C)
+    args = make(M, N, B, seed=0)
     start = None
     if warm:
-        cold = gs.lp_batch_group(*args, device="cpu")
+        cold = gs.lp_batch_group(*args, device=cuda_device)
         i0 = int(np.flatnonzero(cold.status == OPTIMAL)[0])
         start = (cold.basis[i0], cold.at_upper[i0])
-    calls = gs.CALLS
-    ker = gs.lp_batch_group(*args, device=cuda_device, start_basis=start)
-    torch.cuda.synchronize()
-    assert gs.CALLS == calls + 1
-    plain = gs.lp_batch_group(*args, device="cpu", start_basis=start)
+    ker, plain, launched = _kernel_and_plain(args, start, cuda_device,
+                                             monkeypatch)
+    assert launched == ((1, 0, 1) if kind == "cluster" else (0, 1, 1))
     np.testing.assert_array_equal(ker.status, plain.status)
     ok = plain.status == OPTIMAL
+    assert ok.any()
     np.testing.assert_allclose(ker.obj[ok], plain.obj[ok], rtol=1e-4,
                                atol=1e-4)
+    if M <= 32:
+        np.testing.assert_array_equal(ker.basis, plain.basis)
+        np.testing.assert_array_equal(ker.iters, plain.iters)
+
+
+@pytest.mark.cuda
+def test_work_counts_on_card(cuda_device, monkeypatch):
+    """The cluster kernel's (loop steps, pricing passes, rank-1 updates)
+    per LP: pivots <= iters <= steps, and a pass at least every 128
+    steps."""
+    captured = {}
+    real = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        captured["a"] = a
+        return real(*a, **kw)
+
+    monkeypatch.setattr(gs, "solve_batch_group", capture)
+    gs.lp_batch_group(*make(200, 200, 8, seed=2), device=cuda_device)
+    monkeypatch.setattr(gs, "solve_batch_group", real)
+    a = captured["a"]
+    work = torch.zeros(a[1].shape[0], 3, dtype=torch.int32,
+                       device=cuda_device)
+    _, _, _, iters = gs.solve_batch_group(*a, work=work)
+    steps, passes, pivots = work.cpu().numpy().T
+    iters = iters.cpu().numpy()
+    assert (pivots <= iters).all() and (iters <= steps).all()
+    assert (pivots > 0).all()
+    assert (passes >= -(-steps // 128)).all()
 
 
 @pytest.mark.cuda

@@ -119,3 +119,100 @@ def test_chunks_over_the_workspace_budget(monkeypatch):
     assert gs._pick_chunk(16, 128) == 2
     got = gs.lp_batch_group(*args, device="cpu")
     assert_same(ref, got)
+
+
+def _old_shape_supported(M, N):
+    """shape_supported as it stood with the global-memory kernel alone:
+    the per-LP vectors fit a block and the tableau the workspace."""
+    Mp, NT = gs.padded_shape(M, N)
+    return ((7 * NT + 7 * Mp) * 4 + Mp * 4 + 2 * NT <= gs.SMEM_LIMIT
+            and Mp * NT * 4 <= gs.WORKSPACE_BYTES_BUDGET)
+
+
+def _example_lp_shape(name, which):
+    """(M, N) of an example's P2 or P1 LP, as the templates build them:
+    P2 (m+q+p+1, n+q+1), P1 (m+q+1, n+q)."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.algs.solution import sol_init
+    from bensolve_tpu_torch.vlp.options import Options
+
+    vlp = examples.ALL[name]()
+    sol, _ = sol_init(vlp, Options(device="cpu", write_files=False))
+    m, n, q = vlp.m, vlp.n, vlp.q
+    if which == "P2":
+        return m + q + sol.p + 1, n + q + 1
+    return m + q + 1, n + q
+
+
+# (M, N) or an example's LP -> (variant, cluster size)
+PLANS = [((16, 16), ("cluster", 1)), ((160, 160), ("cluster", 2)),
+         ((200, 200), ("cluster", 4)), ((350, 347), ("cluster", 8)),
+         ((500, 500), ("cluster", 16)), ((700, 700), ("global", 0)),
+         (("example01", "P2"), ("cluster", 1)),
+         (("example01", "P1"), ("cluster", 1)),
+         (("example05", "P2"), ("cluster", 1)),
+         (("example05", "P1"), ("cluster", 1)),
+         (("example08", "P2"), ("cluster", 1)),
+         (("example08", "P1"), ("cluster", 1)),
+         (("example10", "P2"), ("cluster", 8)),
+         (("example10", "P1"), ("cluster", 8))]
+
+
+@pytest.mark.parametrize("shape,expected", PLANS,
+                         ids=[f"{a}-{b}" for (a, b), _ in PLANS])
+def test_plan_by_shape(shape, expected):
+    M, N = _example_lp_shape(*shape) if isinstance(shape[0], str) else shape
+    Mp, NT = gs.padded_shape(M, N)
+    assert gs.plan(Mp, NT) == expected
+    kind, C = expected
+    assert gs.smem_bytes(Mp, NT, C) <= gs.SMEM_LIMIT
+    if kind == "cluster" and C > 1:
+        # the smallest cluster that holds the tableau
+        assert gs.smem_bytes(Mp, NT, C // 2) > gs.SMEM_LIMIT
+    if kind == "global":
+        assert all(gs.smem_bytes(Mp, NT, k) > gs.SMEM_LIMIT
+                   for k in gs.CLUSTER_SIZES)
+
+
+def test_rows_or_slices_not_in_fours_take_the_global_variant():
+    assert gs.plan(6, 128) == ("global", 0)
+    assert gs.plan(8, 130) == ("global", 0)
+    assert gs.plan(8, 128) == ("cluster", 1)
+
+
+def test_ex10_cluster_holds_the_whole_tableau():
+    Mp, NT = gs.padded_shape(350, 347)
+    assert (Mp, NT) == (384, 768)
+    # eight column slices of 96, each with all 384 rows (row stride 100),
+    # beside two buffers of the entering column and the vectors
+    tableau = Mp * (NT // 8 + 4) * 4
+    columns = 2 * Mp * 4
+    assert gs.smem_bytes(Mp, NT, 8) >= tableau + columns
+    assert gs.smem_bytes(Mp, NT, 8) - tableau - columns < 32 * 1024
+
+
+@pytest.mark.parametrize("M", [1, 8, 31, 33, 100, 260, 400, 600, 1100, 2100,
+                               4200])
+def test_planned_bytes_fit_and_old_shapes_stay_supported(M):
+    """Over a grid of shapes: the bytes of the planned C never exceed a
+    block's limit, and every shape the gate took before the cluster
+    variant it still takes."""
+    for N in (1, 7, 50, 129, 300, 700, 1500, 3000, 6000, 12000, 24000):
+        Mp, NT = gs.padded_shape(M, N)
+        planned = gs.plan(Mp, NT)
+        if planned is not None:
+            assert gs.smem_bytes(Mp, NT, planned[1]) <= gs.SMEM_LIMIT
+        if _old_shape_supported(M, N):
+            assert gs.shape_supported(M, N) and planned is not None
+
+
+def test_wrapper_takes_a_forced_variant_and_rejects_an_unknown_one():
+    W0 = torch.zeros(8, 128)
+    c = torch.zeros(2, 128)
+    args = (W0, c, c, c, torch.arange(8, dtype=torch.int32),
+            torch.zeros(2, 128, dtype=torch.bool), 10)
+    # the CPU runs the plain version whatever the variant
+    status, _, _, _ = gs.solve_batch_group(*args, variant="global")
+    assert status.shape == (2,)
+    with pytest.raises(ValueError, match="variant"):
+        gs.solve_batch_group(*args, variant="nope")
