@@ -39,13 +39,19 @@ class Stats:
     rounds: int = 0
     cuts: int = 0
     pivots: int = 0   # total simplex pivots (warm-start efficacy metric)
+    loose_deferred: int = 0  # loose results discarded because a clean
+    #   cut removed their vertex within the same round (applied last)
+    loose_cuts: int = 0      # cuts/finalizations accepted from
+    #   loose-quality LPs (a run states how many cuts rode ~1e-2-error
+    #   duals)
 
 
 class _FacetWarm:
     """Per-candidate warm starts (the batched analogue of GLPK's
     carried basis, bslv_lp.c:31): map each frontier candidate to the
-    final basis of the LP whose cut created it, or to its row in the
-    parent solve's kept device tableau."""
+    final basis of the LP whose cut created it, to its row in the
+    parent solve's kept device tableau, or (the IPM route) to its
+    interior solution."""
 
     def __init__(self, enabled: bool):
         self.enabled = enabled
@@ -59,6 +65,24 @@ class _FacetWarm:
                                          np.asarray(at_upper))
             self.serial += 1
 
+    def record_interior(self, facet, x, s, row_dual) -> None:
+        """IPM-route analogue of record(): the parent LP has no basis,
+        so the carried state is its interior solution (x, s, row_dual),
+        consumed by the IPM's shifted warm start (lp/ipm.py
+        _ipm_warm_init).  Stored in float32: a warm START needs no f64
+        digits.  At most 768 entries; the 256 oldest go first."""
+        if self.enabled and facet is not None:
+            self.by_facet[int(facet)] = (self.serial, "interior",
+                                         np.asarray(x, np.float32),
+                                         np.asarray(s, np.float32),
+                                         np.asarray(row_dual, np.float32))
+            self.serial += 1
+            if len(self.by_facet) > 768:
+                drop = sorted(self.by_facet.items(),
+                              key=lambda kv: kv[1][0])[:256]
+                for k, _ in drop:
+                    del self.by_facet[k]
+
     def record_state_row(self, facet, row, solve_no) -> None:
         """Kept-device-tableau analogue of record(): the carried datum is
         the parent's ROW INDEX in its solve plus the solve number — the
@@ -70,8 +94,9 @@ class _FacetWarm:
 
     def lookup(self, poly, cand):
         """Per-candidate parent warm data: (B, M) bases + bound patterns,
-        or ("state_rows", rows, solve_no); None when nothing is known
-        yet or the recorded kinds are mixed."""
+        ("state_rows", rows, solve_no), or ("interior", X, S, RD) stacks
+        for the IPM route; None when nothing is known yet or the
+        recorded kinds are mixed."""
         if not self.enabled or not self.by_facet:
             return None
         rows = []
@@ -84,6 +109,7 @@ class _FacetWarm:
             rows.append(best)
         if all(r is None for r in rows):
             return None
+        orig = rows
         fill = next(r for r in rows if r is not None)
         rows = [r if r is not None else fill for r in rows]
         kinds = {r[1] for r in rows}
@@ -101,6 +127,17 @@ class _FacetWarm:
                     for r in rows]
             return ("state_rows",
                     np.array([r[2] for r in rows], np.int64), latest)
+        if kinds != {"basis"} and kinds != {"interior"}:
+            return None
+        if kinds == {"interior"}:
+            # candidates WITHOUT a recorded parent start COLD (a NaN row
+            # -> per-row cold init in _ipm_warm_init): a borrowed foreign
+            # interior point measurably hurts convergence
+            return ("interior",) + tuple(
+                np.stack([r[2 + k] if r is not None
+                          else np.full_like(fill[2 + k], np.nan)
+                          for r in orig])
+                for k in range(3))
         basis = np.stack([r[2] for r in rows])
         atup = np.stack([r[3] for r in rows])
         return basis, atup
@@ -350,6 +387,15 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                 None if getattr(res, f.name) is None
                 else np.asarray(getattr(res, f.name))[sel]
                 for f in dataclasses.fields(simplex.LPResult)))
+        # LOOSE-quality results (a budget-exhausted f32 IPM accepted at up
+        # to 250x the dtype tolerance) are applied LAST within the round,
+        # so every clean cut first gets the chance to remove the loose
+        # vertex; a loose result whose vertex survives is accepted and
+        # COUNTED (stats.loose_cuts), one that died is discarded
+        # (stats.loose_deferred)
+        loose_mask = (np.zeros(solve_idx.size, bool)
+                      if res.quality is None else
+                      np.asarray(res.quality) == 2)
         W = t2.duals_w(res)                    # (B, q)
 
         # per-candidate cut data rows
@@ -372,10 +418,17 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
 
         progressed = False
         round_cuts = round_final = 0
-        for i in range(solve_idx.size):
+        # clean results first, loose ones last (see loose_mask)
+        for i in np.concatenate([np.flatnonzero(~loose_mask),
+                                 np.flatnonzero(loose_mask)]):
             idx = int(solve_idx[i])
+            is_loose = bool(loose_mask[i])
             if not P.used[idx]:
+                if is_loose:
+                    stats.loose_deferred += 1   # removed by a clean cut
                 continue   # removed by an earlier cut this round
+            if is_loose:
+                stats.loose_cuts += 1
             if passed[i]:
                 primg = primgs[i] if pre_img else None
                 if pair.add_vertex(ystars[i], ideal=False, primg=primg):
@@ -390,9 +443,16 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                         warm.record_state_row(pair.last_added,
                                               orig_rows[i],
                                               t2.last_solve_no)
-                    else:
+                    elif res.basis is not None and not is_loose:
                         warm.record(pair.last_added, res.basis[i],
                                     res.at_upper[i])
+                    elif (res.basis is None and not is_loose
+                          and (res.quality is None
+                               or res.quality[i] == 0)):
+                        # IPM route: carry the parent's CLEAN interior
+                        # solution (loose parents would poison children)
+                        warm.record_interior(pair.last_added, res.x[i],
+                                             res.s[i], res.row_dual[i])
             else:
                 P.sltn[idx] = True
                 round_final += 1
@@ -594,8 +654,14 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
                     progressed = True
                     if verbose >= 3:   # bslv_algs.c:1327
                         print("add primal vertex")
-                    warm.record(pair.last_added, res.basis[i],
-                                res.at_upper[i])
+                    if res.basis is not None:
+                        warm.record(pair.last_added, res.basis[i],
+                                    res.at_upper[i])
+                    elif res.quality is None or res.quality[i] == 0:
+                        # IPM route: carry the parent's CLEAN interior
+                        # solution
+                        warm.record_interior(pair.last_added, res.x[i],
+                                             res.s[i], res.row_dual[i])
             else:
                 P.sltn[idx] = True
                 round_final += 1

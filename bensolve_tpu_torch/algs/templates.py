@@ -47,7 +47,9 @@ class _TemplateBase:
                  lp_method: str = "auto", max_batch: int | None = None,
                  ipm_min: int = 0, device: str = "cuda"):
         self.dtype = np.dtype(dtype).type
-        # Options.lp_ipm_min: routes to the (not yet ported) IPM
+        # Options.lp_ipm_min: M+N threshold above which the router takes
+        # the interior-point method (0 = off; BENSOLVE_IPM_MIN also
+        # enables it)
         self.ipm_min = ipm_min
         # Options.lp_max_batch: hard cap on LPs per device round; the
         # backends' own memory-budget chunking still applies below it
@@ -89,6 +91,10 @@ class _TemplateBase:
         return N < REVISED_RATIO * M
 
     @staticmethod
+    def _is_interior_warm(w) -> bool:
+        return isinstance(w, tuple) and len(w) == 4 and w[0] == "interior"
+
+    @staticmethod
     def _is_state_rows(w) -> bool:
         return isinstance(w, tuple) and len(w) == 3 and w[0] == "state_rows"
 
@@ -116,6 +122,9 @@ class _TemplateBase:
             def _chunk_warm(sl):
                 if warm0 is None:
                     return None
+                if self._is_interior_warm(warm0):
+                    return ("interior", warm0[1][sl], warm0[2][sl],
+                            warm0[3][sl])
                 if self._is_state_rows(warm0):
                     return ("state_rows", np.asarray(warm0[1])[sl],
                             warm0[2])
@@ -132,8 +141,19 @@ class _TemplateBase:
             self._kept_state = None
             return simplex.concat_results(parts)
         warm = start_basis if start_basis is not None else self._warm
+        # the carried clean interior point of the last IPM solve starts
+        # every LP of a batch without per-candidate parents (the JAX
+        # package's rule; at BASELINE config #4 it sends more LPs to
+        # the host fallback than cold starts do, ROADMAP Queue 3 j)
+        warm_interior = getattr(self, "_warm_interior", None)
         state_rows = None
-        if self._is_state_rows(warm):
+        if self._is_interior_warm(warm):
+            # per-candidate parent INTERIOR solutions (_FacetWarm
+            # record_interior): consumed by the IPM's shifted warm
+            # start, never by a simplex start_basis
+            warm_interior = (warm[1], warm[2], warm[3])
+            warm = None
+        elif self._is_state_rows(warm):
             # per-candidate parent rows of the kept device tableau
             # (_FacetWarm.record_state_row) — a gather-based warm start
             # that skips both batched LUs (simplex.KeptState)
@@ -181,12 +201,22 @@ class _TemplateBase:
                                    col_ub, start_basis=warm,
                                    dtype=self.dtype, ipm_min=self.ipm_min,
                                    verbose=self.lp_verbose,
-                                   device=self.device)
+                                   device=self.device,
+                                   warm_interior=warm_interior)
             self._kept_state = None
         ok = np.flatnonzero(res.status == simplex.OPTIMAL)
-        if ok.size:
+        if ok.size and res.basis is not None:
             # carry basis AND nonbasic bound pattern into the next round
             self._warm = (res.basis[int(ok[0])], res.at_upper[int(ok[0])])
+        elif ok.size:
+            # IPM result: carry a CLEAN interior solution into the next
+            # round's warm start (the IPM analogue of the carried basis)
+            clean = (ok if res.quality is None
+                     else ok[res.quality[ok] == 0])
+            if clean.size:
+                i = int(clean[0])
+                self._warm_interior = (res.x[i].copy(), res.s[i].copy(),
+                                       res.row_dual[i].copy())
         if self.lp_verbose >= 2:
             counts = dict(zip(*np.unique(res.status, return_counts=True)))
             print(f"lp_solve: batch={res.status.size} "

@@ -1,8 +1,8 @@
 """Build + ctypes loader for the native polytope engine.
 
-The engine's source is the JAX package's
-``bensolve_tpu/native/poly_engine.cpp``, read by path (not copied, and
-without importing that package).  It is compiled with the system g++ on
+The engine's source is this package's own ``poly_engine.cpp``, a
+byte-identical copy of the JAX package's, so that both packages cut the
+same polytopes.  It is compiled with the system g++ on
 first use into this package's ``_build/`` directory (rebuilt whenever
 the source is newer).  When no working toolchain is available the
 package degrades gracefully: ``lib()`` returns None and the
@@ -18,8 +18,7 @@ import subprocess
 import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "bensolve_tpu",
-                    "native", "poly_engine.cpp")
+_SRC = os.path.join(_HERE, "poly_engine.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 _SO = os.path.join(_BUILD, "_poly_engine.so")
 

@@ -119,7 +119,7 @@ class Polytope:
     Vertex coordinates and the used/ideal/sltn masks are numpy buffers;
     the adjacency and facet-incidence lists (and the graph surgery over
     them) live in the native C++ engine when it is available
-    (bensolve_tpu/native/poly_engine.cpp), sharing these buffers by
+    (bensolve_tpu_torch/native/poly_engine.cpp), sharing these buffers by
     pointer.  Set BENSOLVE_TPU_NO_NATIVE=1 for the pure-Python engine."""
 
     def __init__(self, dim: int, dim_primg: int = 0, cap: int = 64):

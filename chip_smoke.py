@@ -33,14 +33,39 @@ Phases, one output line (or block) each:
    each variant's launches counted over this phase alone (per example),
    and the kernel's share of the phase's wall time from CUDA events
    around the launches;
-8. a tall VLP (every LP has N >= 4M) through the revised simplex at
-   float64 with both algorithms: the revised route taken, the tableau
+8. a tall VLP (every LP has N >= 4M; random_vlp(q=2, m=50, n=500),
+   cut from m=100, n=1000 to keep the script inside its time limit)
+   through the revised simplex at float64 with both algorithms: the revised route taken, the tableau
    and the kernel untouched, the oracle at 1e-4, and the two upper
    images equal within 1e-6 (support functions at 4096 weights; their
    vertex lists may differ along nearly straight stretches);
 9. the revised simplex on the card against the CPU on two random
    batches (float64 to 1e-9, float32 to 1e-3);
-10. the result lines.
+10. the interior-point method at BASELINE config #4's full width
+   (random_vlp(q=5, m=1000, n=2000), P2 LP 1011x2006, B=128), bench.py's
+   round pattern through the port's P2 template with ipm_min=2000: one
+   cold solve and three warm rounds from the template's carried
+   interior point, at float32 and at float64.  The host HiGHS fallback
+   is capped at 0 LPs (the reference's 32 would take 12-22 s per LP):
+   the LPs it would take are counted, ITLIM ones solved by HiGHS here,
+   and up to two loose ones per dtype held to HiGHS.  Per round: wall
+   and device seconds, IPM iterations, statuses, quality, polish, the
+   LPs bound for the host, whether the round meets the criterion of
+   >= 90% resolved on the device and <= 10% to the host, chunks; ms per
+   iteration of the full batch beside the bounds of the work needed and
+   of the work done, and its split into the S build, the two Choleskys
+   and the solves; 4 LPs held to scipy/HiGHS (1e-3 relative at float32,
+   1e-6 at float64).  Fails unless every LP ends OPTIMAL and the
+   float32 cold round meets the criterion (the warm rounds and float64
+   do not meet it in the JAX package either: PERF.md, Findings);
+11. solve() through the interior-point route at float64: example05, 08
+   and 11 with lp_ipm_min=1 (the oracle at 1e-4, upper-image points
+   within 1e-6 of the simplex route's), then random_vlp(q=2, m=150,
+   n=300) with lp_ipm_min=450 (its P2 LP 155x303 takes the route; m and
+   n halved from 300 and 600, which took 293 s);
+12. the interior-point method on the card against the CPU on the random
+   batches of tests/test_ipm.py (float64 to 1e-9, float32 to 1e-3);
+13. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -51,6 +76,9 @@ kernel, plain and bound times at example10's P2 shape, cold, and the
 kernel's time warm); the last line is {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero before
 those lines.  Without a CUDA device, or without the package beside this
 script, it exits non-zero and prints no result.
+
+``--only 10 12`` runs just the named phases after phase 1 and prints no
+result lines (for iterating on one phase).
 """
 
 from __future__ import annotations
@@ -69,7 +97,7 @@ F32_KW = dict(lp_dtype="float32", eps_benson_phase1=1e-4,
 DUAL_KW = dict(alg_phase1="dual", alg_phase2="dual")
 # the tall phase's VLP: examples.random_vlp(q, m, n); its P2 LP is
 # (m+q+q+1) x (n+q+1), tall by a factor of about n/m
-TALL = (2, 100, 1000)
+TALL = (2, 50, 500)
 # the large phase's VLP: its P2 and P1 LPs (705x259, 703x258) pad to
 # Mp=768, NT=1152, a 3.5 MB float32 tableau that no cluster holds, so
 # its kernel launches take the global-memory variant
@@ -78,6 +106,18 @@ KERNEL_SOURCE = "bensolve_tpu_torch/lp/csrc/group_simplex.cu"
 KERNEL_REPLACES = "bensolve_tpu/lp/pallas_simplex.py:55"
 REL_TOL = 1e-4       # float32 kernel vs plain: other summation orders
 EX10_P2 = (350, 347)  # example10's P2 LP, padded to Mp=384, NT=768
+# BASELINE config #4 (bench.py make_p2_instances): random_vlp(q, m, n,
+# seed), B LPs per round, through the interior-point route
+IPM_CONFIG = dict(q=5, m=1000, n=2000, seed=7)
+IPM_B = 128
+IPM_MIN = 2000
+# the interior-point phase's mid-size VLP: random_vlp(q, m, n), whose P2
+# LP (m+2q+1) x (n+q+1) has M + N >= IPM_VLP_MIN
+IPM_VLP = (2, 150, 300)
+IPM_VLP_MIN = 450
+# published H100 SXM peaks (float32 without TF32; float64 tensor cores)
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(*args):
@@ -745,6 +785,339 @@ def phase_revised_vs_cpu():
             f"{cpu.iters.tolist()}")
 
 
+def _highs_one(A, ci, rlb, rub, clb, cub):
+    """One serial HiGHS solve with the full bound-type range (the
+    recipe of bench.py::_highs_one: free rows dropped)."""
+    from scipy.optimize import linprog
+
+    eq = np.isfinite(rlb) & np.isfinite(rub) & (rlb == rub)
+    ub_rows = np.isfinite(rub) & ~eq
+    lb_rows = np.isfinite(rlb) & ~eq
+    A_ub = np.concatenate([A[ub_rows], -A[lb_rows]])
+    b_ub = np.concatenate([rub[ub_rows], -rlb[lb_rows]])
+    return linprog(ci, A_ub=A_ub if A_ub.size else None,
+                   b_ub=b_ub if b_ub.size else None,
+                   A_eq=A[eq] if eq.any() else None,
+                   b_eq=rub[eq] if eq.any() else None,
+                   bounds=list(zip(clb, cub)), method="highs")
+
+
+def _ipm_p2_template(dtype):
+    """bench.py::make_p2_instances through the port: the P2 template of
+    BASELINE config #4 with ipm_min=2000, and B synthetic frontier
+    bounds."""
+    from bensolve_tpu_torch.algs.templates import INHOMOGENEOUS, P2Template
+    from bensolve_tpu_torch.examples import random_vlp
+
+    cfg = IPM_CONFIG
+    q = cfg["q"]
+    vlp = random_vlp(**cfg)
+    Z = np.eye(q)
+    Z = Z / (Z.T @ np.full(q, 1.0 / q))[None, :]
+    t2 = P2Template(vlp, vlp.P.astype(float), Z, np.full(q, 1.0 / q),
+                    INHOMOGENEOUS, dtype=dtype, ipm_min=IPM_MIN,
+                    device="cuda")
+    rng = np.random.default_rng(cfg["seed"] + 1)
+    V = rng.random((IPM_B, q)) * 2.0 + 1.0
+    return t2, V @ t2.ZR
+
+
+def _iteration_bound(M, Nc, B, dtype, needed=True):
+    """(ms, bound_by, flops) of one iteration for B instances: the
+    operations at the dtype's peak against the bytes (A read once, ~20
+    (B, K) vectors read and written) at 3.35 TB/s.  Per instance, the
+    work the iteration needs: M^2 Nc for the symmetric S = W W^T (a
+    SYRK), M^3/3 for one Cholesky, 10 M^2 per direction for its three
+    triangular-solve pairs and two refinement products, 16 M Nc for the
+    G z / G^T y products.  ``needed=False`` counts the work the port
+    does instead: S as a full GEMM (2 M^2 Nc) and the boosted Cholesky
+    computed every iteration (the reference factors it only on a
+    failure)."""
+    K = Nc + M
+    s_build, chol = ((M * M * Nc, M ** 3 / 3.0) if needed
+                     else (2.0 * M * M * Nc, 2 * M ** 3 / 3.0))
+    flops = B * (s_build + chol + 20.0 * M * M + 16.0 * M * Nc)
+    item = np.dtype(dtype).itemsize
+    nbytes = (M * Nc + 40 * B * K) * item
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+class _IPMClock:
+    """Wraps ipm._ipm_core with synchronised host clocks around every
+    segment, and (``split``) the S build, the Cholesky pair and the
+    solves of _Core with CUDA events, summed per batch width."""
+
+    def __init__(self, split=False):
+        from bensolve_tpu_torch.lp import ipm
+
+        self.ipm, self.split = ipm, split
+        self.segments = []          # (batch rows, iterations, seconds)
+        self.events = {"S build": [], "Cholesky x2": [], "solves": []}
+
+    def __enter__(self):
+        ipm, real = self.ipm, self.ipm._ipm_core
+        self.real = real
+        self.real_parts = (ipm._Core.normal_matrix, ipm._Core.factor,
+                           ipm._Core.solve)
+
+        def timed(A, c, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(A, c, *a, **kw)
+            torch.cuda.synchronize()
+            self.segments.append((c.shape[0], out[1],
+                                  time.perf_counter() - t0))
+            return out
+
+        ipm._ipm_core = timed
+        if self.split:
+            def evented(key, fn):
+                def run(*a, **kw):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    out = fn(*a, **kw)
+                    e1.record()
+                    self.events[key].append((e0, e1))
+                    return out
+                return run
+
+            nm, fa, so = self.real_parts
+            ipm._Core.normal_matrix = evented("S build", nm)
+            ipm._Core.factor = staticmethod(evented("Cholesky x2", fa))
+            ipm._Core.solve = staticmethod(evented("solves", so))
+        return self
+
+    def __exit__(self, *exc):
+        self.ipm._ipm_core = self.real
+        nm, fa, so = self.real_parts
+        self.ipm._Core.normal_matrix = nm
+        self.ipm._Core.factor = staticmethod(fa)
+        self.ipm._Core.solve = staticmethod(so)
+
+    def device_seconds(self):
+        return sum(s for _, _, s in self.segments)
+
+    def per_iteration_ms(self, B):
+        """(ms per iteration, iterations) over the segments at width B."""
+        its = sum(n for b, n, _ in self.segments if b == B)
+        secs = sum(s for b, n, s in self.segments if b == B)
+        return (secs / its * 1e3 if its else float("nan")), its
+
+    def part_ms(self, iterations):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v) / max(1, iterations)
+                for k, v in self.events.items()}
+
+
+def phase_ipm_config4():
+    """bench.py's P2 round pattern at config #4's full width through the
+    port's interior-point route, at float32 and float64, with the host
+    HiGHS fallback capped at 0 LPs: each LP the reference would hand to
+    it (ITLIM, or OPTIMAL at quality 1 or 2) is counted and keeps the
+    device's answer, and up to two of them per dtype are held to HiGHS."""
+    import os
+
+    saved = os.environ.get("BENSOLVE_HOST_FALLBACK_MAX")
+    os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = "0"
+    try:
+        highs = None
+        for dtype in ("float32", "float64"):
+            highs = _ipm_rounds(dtype, highs)
+    finally:
+        os.environ.pop("BENSOLVE_HOST_FALLBACK_MAX", None)
+        if saved is not None:
+            os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = saved
+
+
+def _ipm_rounds(dtype, highs):
+    """One dtype of phase 10: the cold solve and three warm rounds (each
+    started from the template's carried interior point, as in the JAX
+    package), then LPs 0-3 of the cold round and up to two LPs bound
+    for the host against HiGHS (LPs 0-3 solved once, ``highs``)."""
+    from bensolve_tpu_torch.lp import ipm, simplex
+
+    t2, extra_ub = _ipm_p2_template(dtype)
+    M, N = t2.A_lp.shape
+    if dtype == "float32":
+        log(f"[ipm] config #4: random_vlp({IPM_CONFIG}) P2 LP {M}x{N}, "
+            f"B={IPM_B}, ipm_min={IPM_MIN}; host HiGHS fallback capped at "
+            f"0 LPs (the reference's cap is 32, at 12-22 s per LP here)")
+    loose = []
+    for r in range(4):
+        ub = extra_ub if r == 0 else extra_ub * (1.0 - 0.002 * r)
+        calls = ipm.CALLS
+        with _IPMClock(split=(r == 0)) as clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = t2.solve(ub)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if ipm.CALLS == calls:
+            raise AssertionError("config #4: the IPM route was not taken")
+        host = np.flatnonzero((res.status == simplex.ITLIM)
+                              | ((res.status == simplex.OPTIMAL)
+                                 & (res.quality >= 1)))
+        resolved = float(((res.status == simplex.OPTIMAL)
+                          & (res.quality == 0)).mean())
+        st = dict(zip(*np.unique(res.status, return_counts=True)))
+        qu = dict(zip(*np.unique(res.quality, return_counts=True)))
+        last = dict(ipm.LAST)
+        Nc = N + int(np.sum(~np.isfinite(t2.col_lb)
+                            & ~np.isfinite(t2.col_ub)))
+        Bfull = 1 << (IPM_B // last["chunks"] - 1).bit_length()
+        ms_it, n_it = clock.per_iteration_ms(Bfull)
+        bound, bound_by, flops = _iteration_bound(M, Nc, Bfull, dtype)
+        done, _, flops_done = _iteration_bound(M, Nc, Bfull, dtype,
+                                               needed=False)
+        name = "cold" if r == 0 else f"warm {r} (carried point)"
+        met = resolved >= 0.9 and host.size <= 0.1 * IPM_B
+        log(f"[ipm] {dtype} {name}: wall {wall:.2f} s, device "
+            f"{clock.device_seconds():.2f} s in {len(clock.segments)} "
+            f"segments (synchronised host clock); IPM iterations max "
+            f"{int(res.iters.max())} median {np.median(res.iters):.0f}; "
+            f"statuses {{{', '.join(f'{int(k)}: {int(v)}' for k, v in st.items())}}} "
+            f"quality {{{', '.join(f'{int(k)}: {int(v)}' for k, v in qu.items())}}}; "
+            f"polished {last['polished']} polish-skipped "
+            f"{last['polish_skipped']}; chunks {last['chunks']}; bound for "
+            f"the host fallback {host.size} LPs; quality 0 on the device "
+            f"{resolved:.3f} of the batch: criterion (>= 0.9 resolved, "
+            f"<= 10% to the host) {'met' if met else 'NOT MET'}; "
+            f"{ms_it:.2f} ms per iteration at B={Bfull} over {n_it} "
+            f"iterations; bound of the work needed {bound:.3f} ms "
+            f"({bound_by}, {flops / 1e9:.0f} GFLOP at "
+            f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s) = "
+            f"{bound / ms_it:.3f} of it; of the work done (full GEMM for "
+            f"S, both Choleskys) {done:.3f} ms ({flops_done / 1e9:.0f} "
+            f"GFLOP) = {done / ms_it:.3f} of it")
+        if r == 0:
+            parts = clock.part_ms(sum(n for _, n, _ in clock.segments))
+            log(f"[ipm] {dtype} cold, per iteration (CUDA events, all "
+                f"widths): " + ", ".join(f"{k} {v:.2f} ms"
+                                         for k, v in parts.items()))
+            cold = res
+            if dtype == "float32" and not met:
+                # the one round where the JAX package's method resolves
+                # the batch on the device (PERF.md, Findings)
+                raise AssertionError(f"config #4 float32 cold: quality "
+                                     f"{qu}, {host.size} LPs to the host")
+        # an ITLIM LP has no answer: solve it on the host, as the
+        # reference's fallback would, so the round ends all OPTIMAL
+        itlim = np.flatnonzero(res.status == simplex.ITLIM)
+        t0 = time.perf_counter()
+        for i in itlim:
+            obj, rlb, rub, clb, cub = t2.build_inputs(ub[i:i + 1])
+            h = _highs_one(t2.A_lp, obj[0], rlb[0], rub[0], clb[0], cub[0])
+            if h.status != 0:
+                raise AssertionError(f"HiGHS LP {i}: {h.message}")
+        if itlim.size:
+            log(f"[ipm] {dtype} {name}: {itlim.size} ITLIM LPs solved by "
+                f"scipy/HiGHS on the host in "
+                f"{time.perf_counter() - t0:.2f} s")
+        if ((res.status != simplex.OPTIMAL)
+                & (res.status != simplex.ITLIM)).any():
+            raise AssertionError(f"config #4 {dtype} {name}: statuses "
+                                 f"{st}")
+        want = 1 if dtype == "float32" else 2
+        if last["chunks"] != want:
+            raise AssertionError(f"config #4 {dtype}: {last['chunks']} "
+                                 f"chunks, expected {want}")
+        bound = host[res.status[host] == simplex.OPTIMAL]
+        loose += [(name, i, ub, res) for i in bound[:2 - len(loose)]]
+    # 4 LPs of the cold round and up to 2 loose LPs against scipy/HiGHS
+    obj, rlb, rub, clb, cub = t2.build_inputs(extra_ub)
+    if highs is None:
+        t0 = time.perf_counter()
+        highs = ([_highs_one(t2.A_lp, obj[i], rlb[i], rub[i], clb[i],
+                             cub[i]) for i in range(4)],
+                 (time.perf_counter() - t0) / 4)
+    tol = 1e-3 if dtype == "float32" else 1e-6
+    errs = []
+    for i, h in enumerate(highs[0]):
+        if h.status != 0:
+            raise AssertionError(f"HiGHS LP {i}: {h.message}")
+        errs.append(abs(cold.obj[i] - h.fun) / (1 + abs(h.fun)))
+    if not max(errs) <= tol:
+        raise AssertionError(f"config #4 {dtype}: obj differs from HiGHS "
+                             f"by {max(errs):.2e} > {tol}")
+    log(f"[ipm] {dtype}: cold objectives of LPs 0-3 within "
+        f"{max(errs):.1e} of scipy/HiGHS relative (limit {tol:g}; "
+        f"HiGHS {highs[1]:.2f} s per LP on the host)")
+    for name, i, ub, res in loose:
+        obj, rlb, rub, clb, cub = t2.build_inputs(ub[i:i + 1])
+        h = _highs_one(t2.A_lp, obj[0], rlb[0], rub[0], clb[0], cub[0])
+        if h.status != 0:
+            raise AssertionError(f"HiGHS LP {i}: {h.message}")
+        log(f"[ipm] {dtype} {name}: LP {i} (quality {int(res.quality[i])}"
+            f", bound for the host) objective within "
+            f"{abs(res.obj[i] - h.fun) / (1 + abs(h.fun)):.1e} of "
+            f"scipy/HiGHS relative")
+    return highs
+
+
+def phase_ipm_e2e():
+    """solve() through the interior-point route at float64."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.lp import ipm
+
+    for name in ("example05", "example08", "example11"):
+        calls = ipm.CALLS
+        r, wall = _solve(name, _options(lp_ipm_min=1))
+        if ipm.CALLS == calls:
+            raise AssertionError(f"{name}: the IPM route was not taken")
+        _report("ipm f64", name, r, wall, 1e-4)
+        ref, wall_s = _solve(name, _options())
+        dist = _sets_close(r.primal_points, ref.primal_points, 1e-6)
+        log(f"[ipm f64] {name}: {ipm.CALLS - calls} IPM batched solves; "
+            f"upper-image points within {dist:.1e} of the simplex route's "
+            f"({len(ref.primal_points)} points, {wall_s:.2f} s; limit 1e-6)")
+    q, m, n = IPM_VLP
+    vlp = examples.random_vlp(q=q, m=m, n=n)
+    h0, calls = ipm.HOST_FALLBACK, ipm.CALLS
+    r, wall = _solve(None, _options(lp_ipm_min=IPM_VLP_MIN), vlp=vlp)
+    _report("ipm f64", f"random_vlp(q={q}, m={m}, n={n}) lp_ipm_min="
+            f"{IPM_VLP_MIN}", r, wall, 1e-4)
+    log(f"[ipm f64] P2 LP {m + 2 * q + 1}x{n + q + 1}: {ipm.CALLS - calls} "
+        f"IPM batched solves, host fallback {ipm.HOST_FALLBACK - h0} LPs")
+
+
+def _ipm_batch(M, N, B, seed):
+    """The random-LP recipe of tests/test_ipm.py::random_lp."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N)) / np.sqrt(N)
+    x0 = rng.random((B, N))
+    b = x0 @ A.T + 0.5 + rng.random((B, M))
+    c = rng.standard_normal((B, N))
+    return (A, c, np.full((B, M), -np.inf), b, np.zeros((B, N)),
+            np.full((B, N), 10.0))
+
+
+def phase_ipm_vs_cpu():
+    from bensolve_tpu_torch.lp import ipm
+
+    for shape, dtype, tol in (((24, 40, 4, 0), np.float64, 1e-9),
+                              ((32, 64, 4, 11), np.float32, 1e-3)):
+        args = _ipm_batch(*shape)
+        if dtype == np.float32:
+            args = tuple(np.asarray(a, np.float32) for a in args)
+        card = ipm.solve_batch_ipm(*args, dtype=dtype, device="cuda")
+        cpu = ipm.solve_batch_ipm(*args, dtype=dtype, device="cpu")
+        if not (card.status == cpu.status).all():
+            raise AssertionError(f"ipm {shape}: status {card.status} on the "
+                                 f"card, {cpu.status} on the CPU")
+        ok = cpu.status == 1
+        err = float(np.abs(card.obj[ok] - cpu.obj[ok]).max()) if ok.any() \
+            else 0.0
+        if not err <= tol * (1 + float(np.abs(cpu.obj[ok]).max())):
+            raise AssertionError(f"ipm {shape}: obj differs by {err:.2e}")
+        log(f"[ipm vs cpu] M={shape[0]} N={shape[1]} B={shape[2]} "
+            f"{np.dtype(dtype).name}: status equal ({int(ok.sum())} "
+            f"optimal), max |obj diff| {err:.1e} (limit {tol:g}); "
+            f"iterations card {card.iters.tolist()} cpu {cpu.iters.tolist()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -754,6 +1127,11 @@ def main() -> int:
         print("chip_smoke: nvidia-smi not found", file=sys.stderr)
         return 1
     phase_environment()
+    only = _only(sys.argv[1:])
+    if only is not None:
+        for k in only:
+            PHASES[k]()
+        return 0
     phase_build()
     ex10, ex10_w, glob = phase_kernel()
     launches = phase_main_f32()
@@ -763,6 +1141,9 @@ def main() -> int:
     launches_dual = phase_dual_f32()
     phase_tall()
     phase_revised_vs_cpu()
+    phase_ipm_config4()
+    phase_ipm_e2e()
+    phase_ipm_vs_cpu()
     log(smi_line())
     common = {"route": "cuda", "source": KERNEL_SOURCE,
               "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
@@ -784,6 +1165,23 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
+          "5": phase_main_f64, "7": phase_dual_f32, "8": phase_tall,
+          "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
+          "11": phase_ipm_e2e,
+          "12": phase_ipm_vs_cpu}
+
+
+def _only(argv):
+    """The phases named after --only, or None without the flag."""
+    if not argv:
+        return None
+    if argv[0] != "--only" or not set(argv[1:]) <= set(PHASES):
+        raise SystemExit(f"usage: chip_smoke.py [--only PHASE ...] with "
+                         f"PHASE in {sorted(PHASES)}")
+    return argv[1:]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernel's two variants build, launch
 on the main path (primal and dual algorithm) and agree with their plain
 PyTorch version at one shape per variant and cluster size; the revised
-simplex gives on the card what it gives on the CPU, with TF32 off.
+simplex and the interior-point method give on the card what they give on
+the CPU, with TF32 off; lp_ipm_min takes a float32 solve past the
+kernel's route to the interior-point method.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -16,6 +18,7 @@ import torch
 
 from bensolve_tpu_torch import Options, examples, solve
 from bensolve_tpu_torch.lp import group_simplex as gs
+from bensolve_tpu_torch.lp import ipm
 from bensolve_tpu_torch.lp import revised as rv
 from bensolve_tpu_torch.lp.simplex import OPTIMAL
 from bensolve_tpu_torch.vlp.options import Alg
@@ -206,3 +209,65 @@ def test_revised_f32_runs_without_tf32(cuda_device, monkeypatch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert seen and not any(seen)
+
+
+def ipm_batch(M, N, B, seed):
+    """The random-LP recipe of tests/test_ipm.py::random_lp."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N)) / np.sqrt(N)
+    x0 = rng.random((B, N))
+    b = x0 @ A.T + 0.5 + rng.random((B, M))
+    c = rng.standard_normal((B, N))
+    return (A, c, np.full((B, M), -np.inf), b, np.zeros((B, N)),
+            np.full((B, N), 10.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [((24, 40, 4, 0), np.float64, 1e-9),
+                                  ((32, 64, 4, 11), np.float32, 1e-3)])
+def test_ipm_on_card_matches_cpu(cuda_device, case):
+    shape, dtype, tol = case
+    args = tuple(np.asarray(a, dtype) for a in ipm_batch(*shape))
+    card = ipm.solve_batch_ipm(*args, dtype=dtype, device=cuda_device)
+    cpu = ipm.solve_batch_ipm(*args, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(card.status, cpu.status)
+    assert (cpu.status == OPTIMAL).all()
+    np.testing.assert_allclose(card.obj, cpu.obj, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ipm_f32_runs_without_tf32(cuda_device, monkeypatch):
+    """Every iteration of a float32 IPM solve sees allow_tf32 False, even
+    when the caller left it on, and the result is the CPU's; the
+    caller's setting comes back after."""
+    seen = []
+    real = ipm._Core.step
+
+    def spy(self, *a, **kw):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(ipm._Core, "step", spy)
+    args = tuple(np.asarray(a, np.float32) for a in ipm_batch(32, 64, 4, 11))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = ipm.solve_batch_ipm(*args, dtype=np.float32,
+                                   device=cuda_device)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert seen and not any(seen)
+    cpu = ipm.solve_batch_ipm(*args, dtype=np.float32, device="cpu")
+    np.testing.assert_array_equal(card.status, cpu.status)
+    np.testing.assert_allclose(card.obj, cpu.obj, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ipm_min_routes_f32_solve_past_the_kernel(cuda_device):
+    routed, calls = gs.ROUTED, ipm.CALLS
+    res = solve(examples.example05(),
+                Options(write_files=False, device="cuda", lp_ipm_min=1,
+                        **F32))
+    assert res.status.name == "OPTIMAL"
+    assert ipm.CALLS > calls
+    assert gs.ROUTED == routed

@@ -9,7 +9,9 @@ oracle of tests/test_e2e.py at 1e-7.  Float32 with BENSOLVE_FORCE_PALLAS=1
 status and vertex sets within 1e-4 each way; float32 rounding may add or
 drop a near-duplicate vertex, so the sets are compared by distance, not
 by count.  A tall random VLP (P LP columns >= 4x its rows) takes the
-revised simplex in both packages.
+revised simplex in both packages.  With lp_ipm_min=1 every LP takes the
+interior-point route in both packages, held to the same float64
+criteria.
 """
 
 import numpy as np
@@ -22,7 +24,7 @@ from bensolve_tpu.algs.driver import solve as jax_solve
 from bensolve_tpu.vlp.options import Options as JaxOptions
 from bensolve_tpu.vlp.options import Alg as JaxAlg
 from bensolve_tpu_torch.convert import problem_from_reference
-from bensolve_tpu_torch.lp import group_simplex, revised
+from bensolve_tpu_torch.lp import group_simplex, ipm, revised
 from bensolve_tpu_torch.vlp.options import Alg
 from tests.test_e2e import check_support
 
@@ -201,9 +203,132 @@ def test_cuda_device_without_card_raises(monkeypatch):
 @pytest.mark.parametrize("opt", [dict(profile_dir="x"),
                                  dict(mesh_axes=("dp",)),
                                  dict(checkpoint_path="x"),
-                                 dict(distributed=True),
-                                 dict(lp_ipm_min=1)])
+                                 dict(distributed=True)])
 def test_unported_options_raise(opt):
     vlp = problem_from_reference(examples.example01())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bt.solve(vlp, bt.Options(write_files=False, device="cpu", **opt))
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_ipm_route_f64_parity(name):
+    """lp_ipm_min=1: every LP of the run goes to the interior-point
+    method in both packages (polished to vertex duals on the host)."""
+    calls = ipm.CALLS
+    ref, got = run_both(name, lp_ipm_min=1)
+    assert ipm.CALLS > calls
+    assert_f64_parity(ref, got)
+
+
+def test_ipm_route_example11_f64_parity():
+    assert_f64_parity(*run_both("example11", lp_ipm_min=1))
+
+
+def test_ipm_env_route_parity(monkeypatch):
+    """BENSOLVE_IPM_MIN=1 enables the route like lp_ipm_min."""
+    monkeypatch.setenv("BENSOLVE_IPM_MIN", "1")
+    calls = ipm.CALLS
+    ref, got = run_both("example05")
+    assert ipm.CALLS > calls
+    assert_f64_parity(ref, got)
+
+
+def _planted_loose(solve_fn, templates_mod, monkeypatch, n_loose_rounds,
+                   every=1):
+    """Solve with every ``every``-th LP of the first ``n_loose_rounds``
+    template solves flagged quality=2 (the results themselves stay
+    exact)."""
+    orig = templates_mod._TemplateBase._run
+    state = {"n": 0}
+
+    def wrapped(self, *a, **k):
+        res = orig(self, *a, **k)
+        state["n"] += 1
+        if state["n"] <= n_loose_rounds:
+            q = np.zeros(res.status.shape[0], np.int32)
+            q[::every] = 2
+            res = type(res)(**{**res.__dict__, "quality": q})
+        return res
+
+    monkeypatch.setattr(templates_mod._TemplateBase, "_run", wrapped)
+    return solve_fn()
+
+
+@pytest.mark.parametrize("n_loose_rounds,every", [(8, 1), (10**6, 1),
+                                                  (10**6, 2)])
+def test_planted_loose_results_parity(n_loose_rounds, every, monkeypatch):
+    """tests/test_quality.py's planted-loose cases on example05 in both
+    packages, plus every other LP of every round flagged (where the order
+    matters): loose results are applied last within a round, counted in
+    stats.loose_cuts (or loose_deferred when a clean cut removed their
+    vertex), and the vertex set equals the unplanted run's."""
+    from bensolve_tpu.algs import templates as jtemplates
+    from bensolve_tpu_torch.algs import templates as ttemplates
+
+    vlp = examples.example05()
+    clean = jax_solve(vlp, JaxOptions(write_files=False))
+    ref = _planted_loose(
+        lambda: jax_solve(vlp, JaxOptions(write_files=False)), jtemplates,
+        monkeypatch, n_loose_rounds, every)
+    got = _planted_loose(
+        lambda: bt.solve(problem_from_reference(vlp),
+                         bt.Options(write_files=False, device="cpu")),
+        ttemplates, monkeypatch, n_loose_rounds, every)
+    assert got.status.name == ref.status.name == clean.status.name
+    assert got.stats.loose_cuts == ref.stats.loose_cuts > 0
+    assert got.stats.loose_deferred == ref.stats.loose_deferred
+    assert (got.stats.lps, got.stats.rounds) == (ref.stats.lps,
+                                                 ref.stats.rounds)
+    assert_sets_close(got.primal_points, clean.primal_points, 1e-6)
+    assert_sets_close(got.primal_points, ref.primal_points, 1e-7)
+
+
+class _LowerImage:
+    """The three members of a polytope that _extract_R_H reads."""
+
+    def __init__(self, data):
+        self.data = np.asarray(data, float)
+        self.ideal = np.zeros(len(self.data), bool)
+
+    def live(self):
+        return np.arange(len(self.data))
+
+
+@pytest.mark.parametrize("dtype,floor", [("float32", 1e-3),
+                                         ("float64", 1e-8)])
+def test_ray_floor_boundary(dtype, floor, monkeypatch):
+    """The phase-1 ray test (ROADMAP Queue 3 b) in both directions, in
+    both packages: a lower-image vertex whose last component lies just
+    under the floor (1e-3 at float32, eps_phase1 at float64) is a ray,
+    one just over it is not."""
+    import types
+
+    from bensolve_tpu.algs import phases as jphases
+    from bensolve_tpu.algs.phases import Stats as JStats
+    from bensolve_tpu.vlp.options import Options as JOptions
+    from bensolve_tpu_torch.algs import phases as tphases
+
+    verts = [[0.2, 0.0], [0.8, 0.0], [0.4, floor * 0.999],
+             [0.6, floor * 1.001], [0.5, 0.5]]
+    cols = {}
+
+    def recorder(key):
+        def cone_vertenum(arr, q):
+            cols[key] = np.asarray(arr).copy()
+            return arr, arr
+        return cone_vertenum
+
+    monkeypatch.setattr(jphases, "cone_vertenum", recorder("jax"))
+    monkeypatch.setattr(tphases, "cone_vertenum", recorder("torch"))
+    c = np.array([0.5, 0.5])
+    jphases._extract_R_H(types.SimpleNamespace(q=2, c=c),
+                         _LowerImage(verts),
+                         JOptions(lp_dtype=dtype, message_level=0),
+                         JStats())
+    tphases._extract_R_H(types.SimpleNamespace(q=2, c=c),
+                         _LowerImage(verts),
+                         bt.Options(lp_dtype=dtype, message_level=0,
+                                    device="cpu"), tphases.Stats())
+    np.testing.assert_array_equal(cols["torch"], cols["jax"])
+    # the rays: the two zero vertices and the one just under the floor
+    np.testing.assert_allclose(cols["torch"][0], [0.2, 0.8, 0.4])

@@ -2,6 +2,7 @@
 CLI writes the same solution files as the JAX package's CLI."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -61,3 +62,74 @@ def test_cli_output_name_keeps_dotted_directories(tmp_path):
     write_vlp(examples.example01(), str(src))
     assert torch_cli.main([str(src), "-m", "0", "--device", "cpu"]) == 0
     assert (folder / "ex01_img_p.sol").exists()
+
+
+def _code_strings(path):
+    """Every string constant of a module's code: docstrings left out."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_code_names_the_jax_package_path():
+    """No module of the port builds a path into bensolve_tpu/ (its
+    docstrings may name the JAX modules they port), and no native
+    source includes a file from there."""
+    pkg = os.path.join(ROOT, "bensolve_tpu_torch")
+    bad = []
+    for dirpath, dirnames, files in os.walk(pkg):
+        dirnames[:] = [d for d in dirnames if d not in ("_build",
+                                                        "__pycache__")]
+        for f in files:
+            path = os.path.join(dirpath, f)
+            if f.endswith(".py"):
+                bad += [(path, s) for s in _code_strings(path)
+                        if s == "bensolve_tpu" or "bensolve_tpu/" in s]
+            elif f.endswith((".cu", ".cuh", ".cpp", ".h")):
+                bad += [(path, ln) for ln in open(path)
+                        if ln.lstrip().startswith("#include")
+                        and "bensolve_tpu" in ln]
+    assert not bad, bad
+
+
+def test_engine_builds_from_the_ports_own_source(tmp_path, monkeypatch):
+    """The polytope engine compiles from bensolve_tpu_torch/native/
+    poly_engine.cpp, a byte-identical copy of the JAX package's."""
+    import subprocess as sp
+
+    from bensolve_tpu_torch import native
+
+    src = os.path.join(ROOT, "bensolve_tpu_torch", "native",
+                       "poly_engine.cpp")
+    assert os.path.abspath(native._SRC) == src
+    with open(src, "rb") as a, open(os.path.join(
+            ROOT, "bensolve_tpu", "native", "poly_engine.cpp"), "rb") as b:
+        assert a.read() == b.read()
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ here: the engine's pure-Python fallback runs")
+    cmds = []
+    real = sp.run
+
+    def run(cmd, *a, **kw):
+        cmds.append(cmd)
+        return real(cmd, *a, **kw)
+
+    monkeypatch.setattr(native.subprocess, "run", run)
+    monkeypatch.setattr(native, "_BUILD", str(tmp_path))
+    monkeypatch.setattr(native, "_SO", str(tmp_path / "_poly_engine.so"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.delenv("BENSOLVE_TPU_NO_NATIVE", raising=False)
+    assert native.lib() is not None
+    assert len(cmds) == 1 and src in cmds[0]
