@@ -16,9 +16,11 @@ from bensolve_tpu_torch.algs import phases
 from bensolve_tpu_torch.algs.phases import Stats
 from bensolve_tpu_torch.algs.solution import (SolStatus, SolutionContext,
                                               VLPInputError, sol_init)
-from bensolve_tpu_torch.io import writers
+from bensolve_tpu_torch.io import checkpoint, plot, writers
 from bensolve_tpu_torch.lp import simplex
-from bensolve_tpu_torch.poly.polytope import PolytopePair
+from bensolve_tpu_torch.poly.polytope import (PolytopePair,
+                                              make_lower_to_upper_v2h,
+                                              make_upper_to_lower_v2h)
 from bensolve_tpu_torch.vlp.options import Alg, Format, Options
 from bensolve_tpu_torch.vlp.problem import VLPProblem
 
@@ -40,6 +42,7 @@ class VLPSolution:
     stats: Stats = dataclasses.field(default_factory=Stats)
     time_ms: float = 0.0
     message: str = ""
+    plot_swap_pair: PolytopePair | None = None  # untransformed swapped pair (-p)
 
     def _images(self):
         if self.swap:
@@ -116,33 +119,41 @@ def _count(sol, pair, swap: bool) -> None:
     sol.dd_dir = int(lo_ideal.sum())
 
 
-def _not_ported(opt: Options, resume) -> str | None:
-    if resume:
-        return "resume (checkpoint restart)"
-    if opt.checkpoint_path:
-        return "checkpoint_path"
-    if opt.profile_dir:
-        return "profile_dir (profiler)"
-    if opt.plot:
-        return "plot (OFF/INST graphics)"
-    if opt.distributed:
-        return "distributed"
-    return None
+def _profiled(profile_dir: str, device, run):
+    """``run()`` under torch.profiler (CPU activity always, CUDA activity
+    when the LPs run on a card), its Chrome trace written into
+    ``profile_dir`` as ``bensolve_trace_<ms since the epoch>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        out = run()
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"bensolve_trace_{time.time_ns() // 10**6}.json"))
+    return out
 
 
 def solve(vlp: VLPProblem, opt: Options | None = None,
           resume: str | None = None) -> VLPSolution:
     """Solve a VLP.  Pure computation — no files are written; see
     solve_file for the CLI artifact family.  Every LP tensor lives on
-    ``opt.device``; a CUDA device that is not there raises."""
+    ``opt.device``; a CUDA device that is not there raises.
+
+    ``resume``: path to a checkpoint written via
+    Options.checkpoint_path (by this package or the JAX one): the
+    phases before it and its phase's seeding are skipped, and the main
+    loop continues from the stored outer approximation."""
     opt = opt if opt is not None else Options()
-    missing = _not_ported(opt, resume)
-    if missing:
-        raise NotImplementedError(
-            f"{missing} is not ported to bensolve_tpu_torch yet (ROADMAP "
-            f"Queue 1)")
     opt.build_mesh()   # raises when mesh_axes asks for sharding
-    simplex.resolve_device(opt.device)
+    dev = simplex.resolve_device(opt.device)
+    if opt.profile_dir:
+        return _profiled(
+            opt.profile_dir, dev,
+            lambda: solve(vlp, dataclasses.replace(opt, profile_dir=""),
+                          resume=resume))
     stats = Stats()
     t0 = time.perf_counter()
 
@@ -150,6 +161,30 @@ def solve(vlp: VLPProblem, opt: Options | None = None,
         sol, P_eff = sol_init(vlp, opt)
     except VLPInputError as e:
         return VLPSolution(SolStatus.INPUTERROR, vlp, opt, message=str(e))
+
+    if resume:
+        sol_chk, pair_chk, meta = checkpoint.load_checkpoint(resume)
+        sol_chk.cone_pair, sol_chk.cone_swap = sol.cone_pair, sol.cone_swap
+        sol = sol_chk
+        stats.lps, stats.rounds = meta["lps"], meta["round"]
+        phase = meta["phase"]
+        if phase.startswith("phase1"):
+            # finish phase 1 from the snapshot (R/H extraction included),
+            # then continue with the normal phase-2 path
+            if phase == "phase1_primal":
+                phases.phase1_primal(sol, vlp, P_eff, opt, stats,
+                                     resume_pair=pair_chk)
+            else:
+                phases.phase1_dual(sol, vlp, P_eff, opt, stats,
+                                   resume_pair=pair_chk)
+            swap = opt.alg_phase2 is Alg.DUAL
+            pair = (phases.phase2_dual if swap else
+                    phases.phase2_primal)(sol, vlp, P_eff, opt, stats)
+            return _finish(vlp, opt, sol, pair, swap, stats, t0)
+        swap = phase == "phase2_dual"
+        pair = (phases.phase2_dual if swap else phases.phase2_primal)(
+            sol, vlp, P_eff, opt, stats, resume_pair=pair_chk)
+        return _finish(vlp, opt, sol, pair, swap, stats, t0)
 
     if opt.bounded:
         phases.phase2_init(sol)
@@ -178,7 +213,8 @@ def solve(vlp: VLPProblem, opt: Options | None = None,
 
 
 def _finish(vlp, opt, sol, pair, swap, stats, t0) -> VLPSolution:
-    """Status short-circuits + output epilogue."""
+    """Status short-circuits + output epilogue shared by fresh and
+    resumed solves."""
     if sol.status in (SolStatus.INFEASIBLE, SolStatus.UNBOUNDED):
         if sol.status is SolStatus.INFEASIBLE:
             msg = "VLP is infeasible"
@@ -187,6 +223,17 @@ def _finish(vlp, opt, sol, pair, swap, stats, t0) -> VLPSolution:
         else:
             msg = "LP in phase 2 is not bounded, probably by inaccuracy in phase 1"
         return VLPSolution(sol.status, vlp, opt, sol, stats=stats, message=msg)
+
+    # save the swapped-role pair for plotting BEFORE the output
+    # transforms (bslv_algs.c:1125-1134 / :1554-1563)
+    plot_swap_pair = None
+    if opt.plot and vlp.q == 3:
+        v2h = (make_upper_to_lower_v2h(sol.c) if not swap
+               else make_lower_to_upper_v2h(sol.c))
+        plot_swap_pair = PolytopePair(vlp.q, dual_v2h=v2h)
+        pair.swap(plot_swap_pair)
+        plot_swap_pair.chop()
+        plot_swap_pair.normalize_directions()
 
     # output epilogue (bslv_algs.c:1125-1146 / :1554-1575)
     if not swap:
@@ -200,7 +247,7 @@ def _finish(vlp, opt, sol, pair, swap, stats, t0) -> VLPSolution:
     sol.status = SolStatus.OPTIMAL
     _count(sol, pair, swap)
     res = VLPSolution(SolStatus.OPTIMAL, vlp, opt, sol, pair, swap, stats,
-                      time_ms)
+                      time_ms, plot_swap_pair=plot_swap_pair)
     if opt.poly_test:
         errs = pair.check()
         if errs:
@@ -253,4 +300,32 @@ def solve_file(path: str, opt: Options | None = None) -> VLPSolution:
         writers.write_log(base + ".log", problem_file=path, vlp=vlp,
                           sol=result.sol, opt=opt, time_ms=result.time_ms,
                           n_lps=result.stats.lps)
+        if opt.plot and vlp.q == 3 and result.plot_swap_pair is not None:
+            _write_plots(result, base)
     return result
+
+
+def _write_plots(result: VLPSolution, base: str) -> None:
+    """OFF/INST graphics (reference plot epilogue, bslv_algs.c:1148-1156
+    / :1580-1588): the cuts mutate the pairs, so this runs only after
+    the solution files are on disk."""
+    vlp, sol = result.vlp, result.sol
+    pair, swap_pair = result.pair, result.plot_swap_pair
+    if not result.swap:
+        # primal algorithm: pair = upper image, swap_pair = lower image
+        trans_primal(vlp, sol, pair)                 # undo display transform
+        widths = plot.cut_primal_for_plot(pair, sol)
+        trans_primal(vlp, sol, pair)                 # re-apply for display
+        plot.write_plot_files(pair, base, "p", widths)
+        scales = plot.cut_dual_for_plot(swap_pair)
+        trans_dual(vlp, sol, swap_pair)
+        plot.write_plot_files(swap_pair, base, "d", scales)
+    else:
+        # dual algorithm: pair's primal polytope is the lower image
+        trans_dual(vlp, sol, pair)                   # undo
+        scales = plot.cut_dual_for_plot(pair)
+        trans_dual(vlp, sol, pair)
+        plot.write_plot_files(pair, base, "d", scales)
+        widths = plot.cut_primal_for_plot(swap_pair, sol)
+        trans_primal(vlp, sol, swap_pair)
+        plot.write_plot_files(swap_pair, base, "p", widths)

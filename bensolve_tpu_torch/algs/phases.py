@@ -22,7 +22,9 @@ from bensolve_tpu_torch.algs.solution import (SolStatus, SolutionContext,
                                               cone_vertenum)
 from bensolve_tpu_torch.algs.templates import (HOMOGENEOUS, INHOMOGENEOUS,
                                                P1Template, P2Template)
+from bensolve_tpu_torch.io import checkpoint
 from bensolve_tpu_torch.lp import simplex
+from bensolve_tpu_torch.parallel import distributed as dist
 from bensolve_tpu_torch.poly.polytope import (POLY_EPS, PolytopePair,
                                               make_lower_to_upper_v2h,
                                               make_upper_to_lower_v2h)
@@ -279,34 +281,44 @@ def _extract_R_H(sol: SolutionContext, lower_poly, opt: Options,
 
 
 def phase1_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
-                  opt: Options, stats: Stats) -> PolytopePair:
+                  opt: Options, stats: Stats,
+                  resume_pair: PolytopePair | None = None) -> PolytopePair:
     """Outer-approximate the recession cone of the upper image
-    (homogeneous Benson, reference bslv_algs.c:811-933)."""
+    (homogeneous Benson, reference bslv_algs.c:811-933).
+    ``resume_pair``: continue the main loop from a checkpointed outer
+    approximation instead of re-seeding."""
     q = sol.q
     t2 = P2Template(vlp, P_eff, sol.Z, sol.eta, HOMOGENEOUS,
                     **_lp_kw(opt, opt.lp_method_phase1))
     p = sol.p
-    pair = PolytopePair(q, eps=POLY_EPS,
-                        dual_v2h=make_lower_to_upper_v2h(sol.c))
-    # PART 1: one LP per column of Z, each with only its own extra
-    # row active (bslv_algs.c:828-848) — batched
-    ub = np.full((p, p), np.inf)
-    np.fill_diagonal(ub, 0.0)
-    res = t2.solve(ub)
-    stats.lps += p
-    _check_all_optimal(res, "phase1_primal init")
-    for j in range(p):
-        val = np.empty(q)
-        val[: q - 1] = sol.Z[: q - 1, j]
-        val[q - 1] = res.obj[j]
-        pair.add_vertex(val, ideal=False)
-    if not pair.initial_approx():
-        raise RuntimeError("phase1_primal: initial approximation failed")
+    if resume_pair is not None:
+        pair = resume_pair
+    else:
+        pair = PolytopePair(q, eps=POLY_EPS,
+                            dual_v2h=make_lower_to_upper_v2h(sol.c))
+        # PART 1: one LP per column of Z, each with only its own extra
+        # row active (bslv_algs.c:828-848) — batched
+        ub = np.full((p, p), np.inf)
+        np.fill_diagonal(ub, 0.0)
+        res = t2.solve(ub)
+        stats.lps += p
+        _check_all_optimal(res, "phase1_primal init")
+        for j in range(p):
+            val = np.empty(q)
+            val[: q - 1] = sol.Z[: q - 1, j]
+            val[q - 1] = res.obj[j]
+            pair.add_vertex(val, ideal=False)
+        if not pair.initial_approx():
+            raise RuntimeError(
+                "phase1_primal: initial approximation failed")
 
     # PART 2: batched main loop
     _benson_primal_loop(pair, t2, sol, opt.eps_benson_phase1, stats,
-                        phase1=True, warm_mode=opt.warm_mode,
-                        verbose=opt.message_level)
+                        phase1=True, distributed=opt.distributed,
+                        warm_mode=opt.warm_mode,
+                        verbose=opt.message_level,
+                        on_round=_checkpoint_cb(opt, sol, "phase1_primal",
+                                                "lower2upper"))
 
     # PART 3: R and H
     _extract_R_H(sol, pair.dual, opt, stats)
@@ -316,22 +328,34 @@ def phase1_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
 def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                         sol: SolutionContext, eps: float, stats: Stats,
                         *, phase1: bool, pre_img: bool = False,
-                        optdir: int = 1, warm_mode: str = "auto",
+                        optdir: int = 1, on_round=None,
+                        distributed: bool = False,
+                        warm_mode: str = "auto",
                         verbose: int = 0) -> None:
     """Shared main loop of the primal phases: per round, solve P2(v) for
     every unprocessed non-ideal vertex v of the outer approximation and
     either cut (obj > eps) or finalize the vertex.
 
+    ``distributed``: shard the round's LP batch across processes
+    (parallel/distributed.py), all-gather the cuts, and apply them in
+    canonical (lexicographic) order so every process's replicated
+    polytope stays bit-identical.
+
     ``warm_mode``: "per_candidate" warm-starts every LP from its parent
     basis (_FacetWarm), "shared" keeps only the template's carried
     basis, "auto" picks per-candidate unless the batch routes to the
-    per-LP kernel (which broadcasts ONE starting tableau)."""
+    per-LP kernel (which broadcasts ONE starting tableau) or runs
+    distributed (remote bases are not gathered).
+
+    ``on_round``: called as on_round(pair, stats) after every round
+    that made progress (the checkpoint hook)."""
     P = pair.primal
     q = sol.q
     ZR = sol.Z if phase1 else sol.R
     warm = _FacetWarm(
         warm_mode == "per_candidate"
-        or (warm_mode == "auto" and not t2.prefers_shared_warm()))
+        or (warm_mode == "auto" and not distributed
+            and not t2.prefers_shared_warm()))
     deferrals: dict[int, int] = {}
     what = "phase1_primal loop" if phase1 else "phase2_primal loop"
     while True:
@@ -344,11 +368,12 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
         if cand.size == 0:
             continue
         stats.rounds += 1
-        solve_idx = cand
+        solve_idx = cand[dist.shard_indices(cand.size)] if distributed \
+            else cand
         if verbose >= 3:
             for _ in range(cand.size):   # bslv_algs.c:877
                 print("process primal vertex - solve lp")
-        V = P.data[solve_idx]                  # (B, q)
+        V = P.data[solve_idx]                  # (B_local, q)
         res = t2.solve(V @ ZR,                 # ub_j = ZR_j . v
                        start_basis=warm.lookup(P, solve_idx))
         stats.lps += cand.size
@@ -357,36 +382,37 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
         # kept-state warm chain records these, and the deferral filter
         # below must keep the mapping aligned
         orig_rows = np.arange(solve_idx.size)
-        # a candidate whose LP did not resolve is DEFERRED: it stays on
-        # the frontier while this round's other cuts reshape the
-        # polytope, and is retried (bounded) in later rounds.  No
-        # progress at all (every LP failed, or a vertex keeps failing)
-        # raises.
-        bad = np.flatnonzero(res.status != simplex.OPTIMAL)
-        if bad.size == solve_idx.size:
-            _check_all_optimal(res, what)
-        if deferrals:
-            for k in np.flatnonzero(res.status == simplex.OPTIMAL):
-                deferrals.pop(int(solve_idx[k]), None)
-        if bad.size:
-            for k in bad:
-                vid = int(solve_idx[k])
-                deferrals[vid] = deferrals.get(vid, 0) + 1
-                if deferrals[vid] > 5:
-                    raise RuntimeError(
-                        f"{what}: LP for vertex {vid} failed "
-                        f"{deferrals[vid]} rounds running (status "
-                        f"{res.status[k]})")
-            if verbose >= 2:
-                print(f"[{what}] deferring {bad.size} unresolved "
-                      f"candidate(s) to a later round")
-            sel = np.flatnonzero(res.status == simplex.OPTIMAL)
-            solve_idx = solve_idx[sel]
-            orig_rows = orig_rows[sel]
-            res = simplex.LPResult(*(
-                None if getattr(res, f.name) is None
-                else np.asarray(getattr(res, f.name))[sel]
-                for f in dataclasses.fields(simplex.LPResult)))
+        if not distributed:
+            # a candidate whose LP did not resolve is DEFERRED: it stays
+            # on the frontier while this round's other cuts reshape the
+            # polytope, and is retried (bounded) in later rounds.  No
+            # progress at all (every LP failed, or a vertex keeps
+            # failing) raises.
+            bad = np.flatnonzero(res.status != simplex.OPTIMAL)
+            if bad.size == solve_idx.size:
+                _check_all_optimal(res, what)
+            if deferrals:
+                for k in np.flatnonzero(res.status == simplex.OPTIMAL):
+                    deferrals.pop(int(solve_idx[k]), None)
+            if bad.size:
+                for k in bad:
+                    vid = int(solve_idx[k])
+                    deferrals[vid] = deferrals.get(vid, 0) + 1
+                    if deferrals[vid] > 5:
+                        raise RuntimeError(
+                            f"{what}: LP for vertex {vid} failed "
+                            f"{deferrals[vid]} rounds running (status "
+                            f"{res.status[k]})")
+                if verbose >= 2:
+                    print(f"[{what}] deferring {bad.size} unresolved "
+                          f"candidate(s) to a later round")
+                sel = np.flatnonzero(res.status == simplex.OPTIMAL)
+                solve_idx = solve_idx[sel]
+                orig_rows = orig_rows[sel]
+                res = simplex.LPResult(*(
+                    None if getattr(res, f.name) is None
+                    else np.asarray(getattr(res, f.name))[sel]
+                    for f in dataclasses.fields(simplex.LPResult)))
         # LOOSE-quality results (a budget-exhausted f32 IPM accepted at up
         # to 250x the dtype tolerance) are applied LAST within the round,
         # so every clean cut first gets the chance to remove the loose
@@ -396,10 +422,11 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
         loose_mask = (np.zeros(solve_idx.size, bool)
                       if res.quality is None else
                       np.asarray(res.quality) == 2)
-        W = t2.duals_w(res)                    # (B, q)
+        W = t2.duals_w(res)                    # (B_local, q)
 
         # per-candidate cut data rows
-        ystars = np.empty((solve_idx.size, q))
+        B_local = solve_idx.size
+        ystars = np.empty((B_local, q))
         if phase1:
             alphas = np.asarray(t2.duals_alpha(res))
             ystars[:, : q - 1] = W[:, : q - 1] + alphas[:, None] * \
@@ -415,21 +442,55 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                 t2.duals_u(res) * (1 if optdir == 1 else -1),
                 W * (1 if sol.c_dir.value > 0 else -1)], axis=1)
             xs = t2.primal_x(res)
+        else:
+            primgs = np.zeros((B_local, 0))
+            xs = np.zeros((B_local, 0))
+
+        if distributed:
+            rows = np.concatenate(
+                [solve_idx[:, None].astype(float), passed[:, None],
+                 res.status[:, None].astype(float), ystars, primgs, xs],
+                axis=1)
+            rows = dist.allgather_rows(rows, total=cand.size)
+            # every process sees every process's LP statuses, so a
+            # failure raises on ALL of them together instead of
+            # deadlocking the peers in the next collective
+            bad = np.flatnonzero(rows[:, 2] != simplex.OPTIMAL)
+            if bad.size:
+                raise RuntimeError(
+                    f"{what}: LP for vertex {int(rows[bad[0], 0])} "
+                    f"returned status {int(rows[bad[0], 2])} "
+                    f"(expected optimal)")
+            idx_all = rows[:, 0].astype(int)
+            passed_all = rows[:, 1] > 0.5
+            ystars = rows[:, 3:3 + q]
+            primgs = rows[:, 3 + q:3 + q + primgs.shape[1]]
+            xs = rows[:, 3 + q + primgs.shape[1]:]
+            # finalized vertices first (order-free), then cuts in
+            # canonical order
+            order = np.concatenate([
+                np.flatnonzero(~passed_all),
+                np.flatnonzero(passed_all)[
+                    dist.canonical_order(ystars[passed_all])]])
+        else:
+            idx_all = solve_idx
+            passed_all = passed
+            # clean results first, loose ones last (see loose_mask)
+            order = np.concatenate([np.flatnonzero(~loose_mask),
+                                    np.flatnonzero(loose_mask)])
 
         progressed = False
         round_cuts = round_final = 0
-        # clean results first, loose ones last (see loose_mask)
-        for i in np.concatenate([np.flatnonzero(~loose_mask),
-                                 np.flatnonzero(loose_mask)]):
-            idx = int(solve_idx[i])
-            is_loose = bool(loose_mask[i])
+        for i in order:
+            idx = int(idx_all[i])
+            is_loose = not distributed and bool(loose_mask[i])
             if not P.used[idx]:
                 if is_loose:
                     stats.loose_deferred += 1   # removed by a clean cut
                 continue   # removed by an earlier cut this round
             if is_loose:
                 stats.loose_cuts += 1
-            if passed[i]:
+            if passed_all[i]:
                 primg = primgs[i] if pre_img else None
                 if pair.add_vertex(ystars[i], ideal=False, primg=primg):
                     stats.cuts += 1
@@ -437,7 +498,9 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                     progressed = True
                     if verbose >= 3:   # bslv_algs.c:888
                         print("add dual vertex")
-                    if t2.state_available():
+                    if distributed:
+                        pass   # remote bases are not gathered
+                    elif t2.state_available():
                         # parent tableau kept on device: record only
                         # the row index (gather-based warm start)
                         warm.record_state_row(pair.last_added,
@@ -477,6 +540,8 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
                     f"(e.g. vertex {unverified[0]})")
             P.sltn[cand] = True
             break
+        if on_round is not None:
+            on_round(pair, stats)
 
 
 def phase2_init(sol: SolutionContext) -> None:
@@ -486,47 +551,73 @@ def phase2_init(sol: SolutionContext) -> None:
     sol.H = sol.Y.copy()
 
 
+def _checkpoint_cb(opt: Options, sol: SolutionContext, phase: str,
+                   v2h_kind: str):
+    """Build the per-round snapshot callback (None when disabled)."""
+    if not opt.checkpoint_path:
+        return None
+    counter = {"n": 0}
+
+    def cb(pair, stats):
+        counter["n"] += 1
+        if counter["n"] % max(opt.checkpoint_every, 1) == 0:
+            checkpoint.save_checkpoint(
+                opt.checkpoint_path, sol=sol, pair=pair, phase=phase,
+                v2h_kind=v2h_kind, round_no=stats.rounds, lps=stats.lps)
+
+    return cb
+
+
 def phase2_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
-                  opt: Options, stats: Stats) -> PolytopePair | None:
+                  opt: Options, stats: Stats,
+                  resume_pair: PolytopePair | None = None
+                  ) -> PolytopePair | None:
     """Inhomogeneous primal Benson on the upper image
-    (reference bslv_algs.c:958-1161, computation part; output epilogue
-    lives in the driver)."""
+    (reference bslv_algs.c:958-1161, computation part; the output
+    epilogue is algs/driver.py's).  ``resume_pair``: continue the main
+    loop from a checkpointed outer approximation instead of re-seeding."""
     q = sol.q
     pre = opt.solution
     t2 = P2Template(vlp, P_eff, sol.R, sol.eta, INHOMOGENEOUS,
                     **_lp_kw(opt, opt.lp_method_phase2))
     r = sol.r
-    pair = PolytopePair(q, eps=POLY_EPS,
-                        dual_v2h=make_lower_to_upper_v2h(sol.c),
-                        dim_primg_primal=vlp.n if pre else 0,
-                        dim_primg_dual=vlp.m + q if pre else 0)
-    # PART 1: seed with one LP per column of R (bslv_algs.c:976-1018)
-    ub = np.full((r, r), np.inf)
-    np.fill_diagonal(ub, 0.0)
-    res = t2.solve(ub)
-    stats.lps += r
-    for j in range(r):
-        if res.status[j] != simplex.OPTIMAL:
-            sol.status = (SolStatus.INFEASIBLE
-                          if res.status[j] == simplex.INFEASIBLE
-                          else SolStatus.UNBOUNDED)
-            return None
-        val = np.empty(q)
-        val[:] = sol.R[:, j]
-        val[q - 1] = res.obj[j]
-        primg = None
-        if pre:
-            primg = np.concatenate([
-                t2.duals_u(res)[j] * (1 if vlp.optdir == 1 else -1),
-                sol.R[:, j] * (1 if sol.c_dir.value > 0 else -1)])
-        pair.add_vertex(val, ideal=False, primg=primg)
-    if not pair.initial_approx():
-        raise RuntimeError("phase2_primal: initial approximation failed")
+    if resume_pair is not None:
+        pair = resume_pair
+    else:
+        pair = PolytopePair(q, eps=POLY_EPS,
+                            dual_v2h=make_lower_to_upper_v2h(sol.c),
+                            dim_primg_primal=vlp.n if pre else 0,
+                            dim_primg_dual=vlp.m + q if pre else 0)
+        # PART 1: seed with one LP per column of R (bslv_algs.c:976-1018)
+        ub = np.full((r, r), np.inf)
+        np.fill_diagonal(ub, 0.0)
+        res = t2.solve(ub)
+        stats.lps += r
+        for j in range(r):
+            if res.status[j] != simplex.OPTIMAL:
+                sol.status = (SolStatus.INFEASIBLE
+                              if res.status[j] == simplex.INFEASIBLE
+                              else SolStatus.UNBOUNDED)
+                return None
+            val = np.empty(q)
+            val[:] = sol.R[:, j]
+            val[q - 1] = res.obj[j]
+            primg = None
+            if pre:
+                primg = np.concatenate([
+                    t2.duals_u(res)[j] * (1 if vlp.optdir == 1 else -1),
+                    sol.R[:, j] * (1 if sol.c_dir.value > 0 else -1)])
+            pair.add_vertex(val, ideal=False, primg=primg)
+        if not pair.initial_approx():
+            raise RuntimeError("phase2_primal: initial approximation failed")
 
     # PART 2: batched main loop
     _benson_primal_loop(pair, t2, sol, opt.eps_benson_phase2, stats,
                         phase1=False, pre_img=bool(pre), optdir=vlp.optdir,
-                        warm_mode=opt.warm_mode, verbose=opt.message_level)
+                        distributed=opt.distributed,
+                        warm_mode=opt.warm_mode, verbose=opt.message_level,
+                        on_round=_checkpoint_cb(opt, sol, "phase2_primal",
+                                                "lower2upper"))
 
     # pre-images for the directions of the upper image: re-template
     # P2-homogeneous with the eta row disabled (bslv_algs.c:1084-1114)
@@ -561,27 +652,35 @@ def _direction_preimages(sol: SolutionContext, vlp: VLPProblem,
 
 
 def phase1_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
-                opt: Options, stats: Stats) -> PolytopePair:
+                opt: Options, stats: Stats,
+                resume_pair: PolytopePair | None = None) -> PolytopePair:
     """Homogeneous dual Benson on the lower image (reference
     bslv_algs.c:1248-1371).  The pair's primal polytope is the LOWER
     image; upper-image points arrive as dual vertices."""
     t1 = P1Template(vlp, P_eff, sol.eta, HOMOGENEOUS,
                     **_lp_kw(opt, opt.lp_method_phase1))
-    pair = PolytopePair(sol.q, eps=POLY_EPS,
-                        dual_v2h=make_upper_to_lower_v2h(sol.c))
-    # PART 1: weighted LP at the mean of Z plus Y columns as directions
-    w0 = sol.Z.mean(axis=1)
-    res = t1.solve(w0[None])
-    stats.lps += 1
-    _check_all_optimal(res, "phase1_dual init")
-    pair.add_vertex(t1.primal_y(res)[0], ideal=False)
-    for j in range(sol.o):
-        pair.add_vertex(sol.Y[:, j], ideal=True)
-    if not pair.initial_approx():
-        raise RuntimeError("phase1_dual: initial approximation failed")
+    if resume_pair is not None:
+        pair = resume_pair
+    else:
+        pair = PolytopePair(sol.q, eps=POLY_EPS,
+                            dual_v2h=make_upper_to_lower_v2h(sol.c))
+        # PART 1: weighted LP at the mean of Z plus Y columns as
+        # directions
+        w0 = sol.Z.mean(axis=1)
+        res = t1.solve(w0[None])
+        stats.lps += 1
+        _check_all_optimal(res, "phase1_dual init")
+        pair.add_vertex(t1.primal_y(res)[0], ideal=False)
+        for j in range(sol.o):
+            pair.add_vertex(sol.Y[:, j], ideal=True)
+        if not pair.initial_approx():
+            raise RuntimeError("phase1_dual: initial approximation failed")
 
     _benson_dual_loop(pair, t1, sol, opt.eps_benson_phase1, stats,
-                      warm_mode=opt.warm_mode, verbose=opt.message_level)
+                      distributed=opt.distributed, warm_mode=opt.warm_mode,
+                      verbose=opt.message_level,
+                      on_round=_checkpoint_cb(opt, sol, "phase1_dual",
+                                              "upper2lower"))
     _extract_R_H(sol, pair.primal, opt, stats)
     return pair
 
@@ -599,18 +698,22 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
                       sol: SolutionContext, eps: float, stats: Stats,
                       *, pre_img: bool = False, optdir: int = 1,
                       allow_unbounded: bool = False,
-                      warm_mode: str = "auto",
+                      on_round=None, warm_mode: str = "auto",
+                      distributed: bool = False,
                       verbose: int = 0) -> SolStatus | None:
     """Shared main loop of the dual phases: per round, solve P1(w(y*))
     for every unprocessed vertex y* of the lower-image approximation and
     either add the point P1 found (obj below y*_q - eps) or finalize
-    the vertex.  ``warm_mode`` as in _benson_primal_loop."""
+    the vertex.  ``warm_mode``, ``distributed`` (here the gathered rows
+    are the lower-image points) and ``on_round`` as in
+    _benson_primal_loop."""
     P = pair.primal
     q = sol.q
     m = t1.m
     warm = _FacetWarm(
         warm_mode == "per_candidate"
-        or (warm_mode == "auto" and not t1.prefers_shared_warm()))
+        or (warm_mode == "auto" and not distributed
+            and not t1.prefers_shared_warm()))
     while True:
         frontier = P.frontier()
         if frontier.size == 0:
@@ -621,32 +724,71 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
         if cand.size == 0:
             continue
         stats.rounds += 1
+        solve_idx = cand[dist.shard_indices(cand.size)] if distributed \
+            else cand
         if verbose >= 3:
             for _ in range(cand.size):   # bslv_algs.c:1319
                 print("process dual vertex - solve lp")
-        V = P.data[cand].copy()
+        V = P.data[solve_idx].copy()
         W = _w_of_ystar(V, sol.c)
-        res = t1.solve(W, start_basis=warm.lookup(P, cand))
+        res = t1.solve(W, start_basis=warm.lookup(P, solve_idx))
         stats.lps += cand.size
         stats.pivots += int(res.iters.sum())
-        if allow_unbounded and (res.status == simplex.UNBOUNDED).any():
+        unbnd = res.status == simplex.UNBOUNDED
+        if allow_unbounded and not distributed and unbnd.any():
             return SolStatus.UNBOUNDED
-        _check_all_optimal(res, "dual Benson loop")
+        if not distributed:
+            _check_all_optimal(res, "dual Benson loop")
         Y = t1.primal_y(res)
+        B_local = solve_idx.size
         passed = V[:, q - 1] - res.obj > eps
         if pre_img:
             xs = t1.primal_x(res)
             uws = np.concatenate([
                 t1.duals_u(res) * (1 if optdir == 1 else -1),
                 W * (1 if sol.c_dir.value > 0 else -1)], axis=1)
+        else:
+            xs = np.zeros((B_local, 0))
+            uws = np.zeros((B_local, 0))
+
+        if distributed:
+            rows = np.concatenate(
+                [solve_idx[:, None].astype(float), passed[:, None],
+                 unbnd[:, None].astype(float),
+                 res.status[:, None].astype(float), Y, xs, uws], axis=1)
+            rows = dist.allgather_rows(rows, total=cand.size)
+            if allow_unbounded and (rows[:, 2] > 0.5).any():
+                return SolStatus.UNBOUNDED
+            # gathered status check: one process's LP failure must raise
+            # on every process, not strand the peers in the next
+            # collective
+            bad = np.flatnonzero(rows[:, 3] != simplex.OPTIMAL)
+            if bad.size:
+                raise RuntimeError(
+                    f"dual Benson loop: LP for vertex {int(rows[bad[0], 0])} "
+                    f"returned status {int(rows[bad[0], 3])} "
+                    f"(expected optimal)")
+            idx_all = rows[:, 0].astype(int)
+            passed_all = rows[:, 1] > 0.5
+            Y = rows[:, 4:4 + q]
+            xs = rows[:, 4 + q:4 + q + xs.shape[1]]
+            uws = rows[:, 4 + q + xs.shape[1]:]
+            order = np.concatenate([
+                np.flatnonzero(~passed_all),
+                np.flatnonzero(passed_all)[
+                    dist.canonical_order(Y[passed_all])]])
+        else:
+            idx_all = solve_idx
+            passed_all = passed
+            order = np.arange(idx_all.size)
 
         progressed = False
         round_cuts = round_final = 0
-        for i in range(cand.size):
-            idx = int(cand[i])
+        for i in order:
+            idx = int(idx_all[i])
             if not P.used[idx]:
                 continue   # removed by an earlier cut this round
-            if passed[i]:
+            if passed_all[i]:
                 primg = xs[i] if pre_img else None
                 if pair.add_vertex(Y[i], ideal=False, primg=primg):
                     stats.cuts += 1
@@ -654,7 +796,9 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
                     progressed = True
                     if verbose >= 3:   # bslv_algs.c:1327
                         print("add primal vertex")
-                    if res.basis is not None:
+                    if distributed:
+                        pass   # remote bases are not gathered
+                    elif res.basis is not None:
                         warm.record(pair.last_added, res.basis[i],
                                     res.at_upper[i])
                     elif res.quality is None or res.quality[i] == 0:
@@ -675,42 +819,54 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
         if not progressed:
             P.sltn[cand] = True
             break
+        if on_round is not None:
+            on_round(pair, stats)
     return None
 
 
 def phase2_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
-                opt: Options, stats: Stats) -> PolytopePair | None:
+                opt: Options, stats: Stats,
+                resume_pair: PolytopePair | None = None
+                ) -> PolytopePair | None:
     """Inhomogeneous dual Benson (reference bslv_algs.c:1381-1592,
     computation part; output epilogue lives in the driver)."""
     q = sol.q
     pre = opt.solution
     t1 = P1Template(vlp, P_eff, sol.eta, INHOMOGENEOUS,
                     **_lp_kw(opt, opt.lp_method_phase2))
-    pair = PolytopePair(q, eps=POLY_EPS,
-                        dual_v2h=make_upper_to_lower_v2h(sol.c),
-                        dim_primg_primal=vlp.m + q if pre else 0,
-                        dim_primg_dual=vlp.n if pre else 0)
-    # PART 1: weighted LP at the mean of R plus H columns as directions
-    w0 = sol.R.mean(axis=1)
-    res = t1.solve(w0[None])
-    stats.lps += 1
-    if res.status[0] != simplex.OPTIMAL:
-        sol.status = (SolStatus.INFEASIBLE
-                      if res.status[0] == simplex.INFEASIBLE
-                      else SolStatus.UNBOUNDED)
-        return None
-    primg = t1.primal_x(res)[0] if pre else None
-    pair.add_vertex(t1.primal_y(res)[0], ideal=False, primg=primg)
-    for j in range(sol.h):
-        pair.add_vertex(sol.H[:, j], ideal=True)
-    if not pair.initial_approx():
-        raise RuntimeError("phase2_dual: initial approximation failed")
+    if resume_pair is not None:
+        pair = resume_pair
+    else:
+        pair = PolytopePair(q, eps=POLY_EPS,
+                            dual_v2h=make_upper_to_lower_v2h(sol.c),
+                            dim_primg_primal=vlp.m + q if pre else 0,
+                            dim_primg_dual=vlp.n if pre else 0)
+        # PART 1: weighted LP at the mean of R plus H columns as
+        # directions
+        w0 = sol.R.mean(axis=1)
+        res = t1.solve(w0[None])
+        stats.lps += 1
+        if res.status[0] != simplex.OPTIMAL:
+            sol.status = (SolStatus.INFEASIBLE
+                          if res.status[0] == simplex.INFEASIBLE
+                          else SolStatus.UNBOUNDED)
+            return None
+        primg = t1.primal_x(res)[0] if pre else None
+        pair.add_vertex(t1.primal_y(res)[0], ideal=False, primg=primg)
+        for j in range(sol.h):
+            pair.add_vertex(sol.H[:, j], ideal=True)
+        if not pair.initial_approx():
+            raise RuntimeError("phase2_dual: initial approximation failed")
 
     status = _benson_dual_loop(pair, t1, sol, opt.eps_benson_phase2, stats,
                                pre_img=bool(pre), optdir=vlp.optdir,
                                allow_unbounded=True,
+                               distributed=opt.distributed,
                                warm_mode=opt.warm_mode,
-                               verbose=opt.message_level)
+                               verbose=opt.message_level,
+                               on_round=_checkpoint_cb(opt, sol,
+                                                       "phase2_dual",
+                                                       "upper2lower"))
     if status is not None:
         sol.status = status
         return None

@@ -5,7 +5,11 @@ import JAX), so whatever one hands to the other goes through numpy:
 
 * ``problem_from_numpy`` / ``problem_from_reference`` build this
   package's VLPProblem from the JAX package's problem fields, so both
-  solve the same problem;
+  solve the same problem; ``problems_from_reference`` does so for a
+  list (the input of ``algs.many.solve_many``);
+* a checkpoint needs no conversion: ``io/checkpoint.py`` writes and
+  reads the JAX package's ``.npz`` keys, so ``solve(resume=path)`` of
+  either package takes a snapshot written by the other;
 * ``kept_state_from_numpy`` and ``warm_from_result`` turn a JAX
   ``KeptState`` or an ``LPResult`` warm start into this package's
   tensors and arrays, so both can start a dual-simplex chain from the
@@ -50,6 +54,11 @@ def problem_from_reference(obj) -> VLPProblem:
         row_ub=obj.rows.ub, col_types=obj.cols.types, col_lb=obj.cols.lb,
         col_ub=obj.cols.ub, optdir=obj.optdir, cone_gen=obj.cone_gen.value,
         gen=obj.gen, c=obj.c, nz=obj.nz, nzobj=obj.nzobj)
+
+
+def problems_from_reference(objs) -> list[VLPProblem]:
+    """A list of the JAX package's problems as this package's."""
+    return [problem_from_reference(o) for o in objs]
 
 
 def kept_state_from_numpy(basis, in_basis, at_upper, W, age,

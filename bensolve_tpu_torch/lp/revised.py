@@ -23,7 +23,6 @@ Reference contract: bslv_lp.c:219-303.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -33,7 +32,7 @@ from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, INFEASIBLE, ITLIM,
                                            OPTIMAL, RUNNING, SEGMENT_MAX,
                                            UNBOUNDED, LPResult, _nb_value,
-                                           _set_at, _take, _tols)
+                                           _set_at, _take, _tf32_off, _tols)
 
 # batched device solves run by this backend (one per chunk), on any
 # device; the tests and chip_smoke.py read it to see the route was taken
@@ -508,18 +507,6 @@ def _prepare_scaled(A, dtype, device) -> _ScaledA:
         _S_CACHE.clear()
     _S_CACHE[key] = scaled
     return scaled
-
-
-@contextlib.contextmanager
-def _tf32_off():
-    """float32 matmuls at full precision for the duration of a solve: a
-    TF32 pricing pass keeps 10 of the 23 mantissa bits."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
 
 
 def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,

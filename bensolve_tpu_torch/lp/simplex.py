@@ -27,7 +27,10 @@ problem).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import threading
+import types
 
 import numpy as np
 import torch
@@ -137,25 +140,37 @@ def _nb_value(lb, ub, at_upper):
 
 
 def _e_matmul(A, v):
-    """E @ v for E = [I | -A] and a shared (M, N) ``A``; v is (B, M+N)."""
-    M = A.shape[0]
+    """E @ v for E = [I | -A]; v is (B, M+N).  ``A`` is (M, N) shared or
+    (B, M, N) per-instance (scenario batches)."""
+    M = A.shape[-2]
+    if A.ndim == 3:
+        return v[:, :M] - torch.bmm(A, v[:, M:, None])[:, :, 0]
     return v[:, :M] - v[:, M:] @ A.T
 
 
 def _e_rmatmul(A, y):
     """E^T @ y; y has shape (B, M)."""
+    if A.ndim == 3:
+        return torch.cat([y, -torch.bmm(y[:, None, :], A)[:, 0, :]], dim=1)
     return torch.cat([y, -(y @ A)], dim=1)
 
 
 def _E(A):
-    M = A.shape[0]
-    return torch.cat([torch.eye(M, dtype=A.dtype, device=A.device), -A],
-                     dim=1)
+    """[I | -A]: (M, NT) for a shared matrix, (B, M, NT) for a 3-D one."""
+    M = A.shape[-2]
+    eye = torch.eye(M, dtype=A.dtype, device=A.device)
+    if A.ndim == 3:
+        return torch.cat([eye.expand(A.shape[0], M, M), -A], dim=2)
+    return torch.cat([eye, -A], dim=1)
 
 
 def _batched_basis_matrices(A, bases):
-    """(B, M, M) basis matrices whose columns are E[:, bases[b, k]], as a
-    plain row gather of E^T."""
+    """(B, M, M) basis matrices whose columns are E[:, bases[b, k]]: a
+    plain row gather of E^T for a shared matrix, a per-instance column
+    gather for a 3-D one."""
+    if A.ndim == 3:
+        M = A.shape[1]
+        return _E(A).gather(2, bases[:, None, :].expand(-1, M, -1))
     return _E(A).T[bases].transpose(1, 2)
 
 
@@ -215,18 +230,23 @@ def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
     """Initial tableau state.  ``basis0``: None (slack basis), a shared
     (M,) basis (one LU for the whole batch) or per-instance (B, M)
     bases (batched LU).  ``at_upper0``: the previous solution's nonbasic
-    bound pattern, (NT,) or (B, NT)."""
+    bound pattern, (NT,) or (B, NT).  Over per-instance matrices
+    (``A`` (B, M, N)) E is per-instance too, and a shared warm basis is
+    still one factorization per instance."""
     B, NT = c.shape
-    M, N = A.shape
-    dev, dtype = c.device, c.dtype
+    M = A.shape[-2]
+    dev = c.device
     E = _E(A)
+    if basis0 is not None and basis0.ndim == 1 and A.ndim == 3:
+        basis0 = basis0.expand(B, M)
     if basis0 is None:
         basis = torch.arange(M, device=dev).repeat(B, 1)
         in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
         in_basis[:, :M] = True
-        W = E.repeat(B, 1, 1)
+        # a 3-D E is this call's own tensor: the tableau may take it
+        W = E if A.ndim == 3 else E.repeat(B, 1, 1)
     elif basis0.ndim == 2:
-        basis = basis0.long()
+        basis = basis0.long().contiguous()
         in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
         in_basis.scatter_(1, basis, True)
         LU, piv = _lu_factor(_batched_basis_matrices(A, basis))
@@ -419,7 +439,7 @@ def _final_solutions(A, c, lb, ub, basis, in_basis, at_upper, cB,
     drift from the pivot loop.  ``Bmat``: the (B, M, M) basis matrices
     when the caller already holds them (the revised simplex maintains
     them); otherwise they are gathered from E."""
-    M = A.shape[0]
+    M = A.shape[-2]
     if Bmat is None:
         Bmat = _batched_basis_matrices(A, basis)
     zn = torch.where(in_basis, c.new_zeros(()), _nb_value(lb, ub, at_upper))
@@ -448,7 +468,7 @@ def _cheap_finish(A, c, lb, ub, st: _State):
     Binv = W[:, :, :M]).  Valid while the carried rank-1 drift is small
     (the caller gates on KeptState.age + this solve's pivots)."""
     status = torch.where(st.status == RUNNING, ITLIM, st.status)
-    M = A.shape[0]
+    M = A.shape[-2]
     zn = torch.where(st.in_basis, c.new_zeros(()),
                      _nb_value(lb, ub, st.at_upper))
     z = zn.scatter(1, st.basis, st.xb)
@@ -545,7 +565,39 @@ def _bucket(x: int) -> int:
 
 
 MAX_CHUNK = 256  # largest batch solved at once; bigger batches split
+# the same cap for per-instance-matrix batches (_solve_batch_3d): many
+# small LPs, where every chunk costs a whole launch-bound pivot loop
+# (~0.14 s on an H100 for 256 as for 2,048 LPs of 17x12), so the chunk
+# is as large as the byte budget allows at such shapes
+MAX_CHUNK_3D = 65536
 TABLEAU_BYTES_BUDGET = 2 << 30  # cap on the (B, M, NT) tableau size
+
+
+_TF32_LOCK = threading.Lock()
+_TF32_DEPTH = 0
+_TF32_SAVED = False
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """float32 matmuls at full precision for the duration of a solve: a
+    TF32 pricing pass keeps 10 of the 23 mantissa bits.  The switch is
+    one per process, so concurrent solves (one thread per lockstep
+    group) count their nesting: the first in saves the caller's
+    setting, the last out restores it."""
+    global _TF32_DEPTH, _TF32_SAVED
+    with _TF32_LOCK:
+        if _TF32_DEPTH == 0:
+            _TF32_SAVED = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _TF32_DEPTH += 1
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _TF32_DEPTH -= 1
+            if _TF32_DEPTH == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _TF32_SAVED
 
 
 @dataclasses.dataclass
@@ -575,6 +627,10 @@ _A_CACHE: collections.OrderedDict = collections.OrderedDict()
 _A_CACHE_MAX = 8
 
 
+def _np_dtype(tdt: torch.dtype):
+    return np.float32 if tdt == torch.float32 else np.float64
+
+
 def _prepare_A(A, dtype, device) -> _PreparedA:
     """Pad ``A`` to bucketed dims and place it on ``device``, memoized by
     object identity, dtype and device (callers must not mutate ``A``
@@ -585,17 +641,13 @@ def _prepare_A(A, dtype, device) -> _PreparedA:
         if A.dev.dtype == tdt and A.dev.device.type == dev.type:
             return A
         A = A.A
-    np_dt = np.float32 if tdt == torch.float32 else np.float64
+    np_dt = _np_dtype(tdt)
     key = (id(A), np.dtype(np_dt).str, str(dev))
     hit = _A_CACHE.get(key)
     if hit is not None and hit.A is A:
         _A_CACHE.move_to_end(key)
         return hit
     arr = np.asarray(A, np_dt)
-    if arr.ndim == 3:
-        raise NotImplementedError(
-            "per-instance constraint matrices (3-D A) are not ported to "
-            "bensolve_tpu_torch yet (ROADMAP Queue 1, many.py/3-D batches)")
     M, N = arr.shape
     Mp, Np = _bucket(M), _bucket(N)
     A_p = np.zeros((Mp, Np), np_dt)
@@ -615,9 +667,10 @@ def _bucket_batch(B: int, Mp: int) -> int:
     return max(8, Bp) if Mp <= 1024 else max(1, Bp)
 
 
-def _pad_batch_inputs(prep: _PreparedA, c, row_lb, row_ub, col_lb, col_ub,
+def _pad_batch_inputs(prep, c, row_lb, row_ub, col_lb, col_ub,
                       Bp, dtype):
-    """(B, *) objective/bounds -> padded (Bp, Mp+Np) host arrays.
+    """(B, *) objective/bounds -> padded (Bp, Mp+Np) host arrays, for the
+    dimensions ``prep`` names (M, N, Mp, Np).
     Padding instances replicate row 0; padding columns are fixed at
     zero so they never enter the basis usefully."""
     M, N, Mp, Np = prep.M, prep.N, prep.Mp, prep.Np
@@ -703,7 +756,8 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 max_iter: int | None = None, dtype=np.float64,
                 start_basis=None, max_chunk: int | None = None,
                 device="cuda", mesh=None) -> LPResult:
-    """Solve a batch of LPs sharing constraint matrix ``A`` (M, N).
+    """Solve a batch of LPs sharing constraint matrix ``A`` (M, N), or
+    a batch over per-instance matrices ``A`` (B, M, N).
 
     ``c``: (B, N) objective on structural variables.
     ``row_lb``/``row_ub``: (B, M); ``col_lb``/``col_ub``: (B, N).
@@ -718,6 +772,12 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
             "mesh: multi-device LP sharding is not ported to "
             "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
     dev = resolve_device(device)
+    if not isinstance(A, _PreparedA) and np.ndim(A) == 3:
+        # ahead of _prepare_A: its identity cache is for shared matrices
+        return _solve_batch_3d(np.asarray(A), c, row_lb, row_ub, col_lb,
+                               col_ub, max_iter=max_iter, dtype=dtype,
+                               start_basis=start_basis,
+                               max_chunk=max_chunk, device=dev)
     prep = _prepare_A(A, dtype, dev)
     np_dt = prep.host.dtype
     if max_chunk is None:
@@ -751,3 +811,59 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
                                    _put(lb, dev), _put(ub, dev), b0, u0,
                                    max_iter)
     return _to_result(out, B, M, N)
+
+
+def _solve_batch_3d(A, c, row_lb, row_ub, col_lb, col_ub, *,
+                    max_iter=None, dtype=np.float64, start_basis=None,
+                    max_chunk=None, device="cuda") -> LPResult:
+    """solve_batch for per-instance constraint matrices A (B, M, N): the
+    instance-level data-parallel form (scenario batches, BASELINE.json
+    config #5).  Every LP of the batch is a DIFFERENT problem, pivoted
+    in lockstep on ``device``.  Padding and chunking mirror the
+    shared-A path; padding instances replicate instance 0.  Nothing
+    here touches the shared-matrix cache, so threads may call it side
+    by side."""
+    dev = resolve_device(device)
+    np_dt = _np_dtype(torch_dtype(dtype))
+    A = np.asarray(A, np_dt)
+    B0, M, N = A.shape
+    c2 = np.atleast_2d(np.asarray(c))
+    if c2.shape[0] != B0:
+        raise ValueError(f"A batch {B0} != objective batch {c2.shape[0]}")
+    if max_chunk is None:
+        per = (M + 8) * (M + N + 16) * np.dtype(np_dt).itemsize * 2
+        cap = max(1, TABLEAU_BYTES_BUDGET // per)
+        max_chunk = min(MAX_CHUNK_3D, 1 << (cap.bit_length() - 1))
+    if B0 > max_chunk:
+        parts = []
+        for s in range(0, B0, max_chunk):
+            sl = slice(s, s + max_chunk)
+            parts.append(_solve_batch_3d(
+                A[sl], c2[sl], np.asarray(row_lb)[sl],
+                np.asarray(row_ub)[sl], np.asarray(col_lb)[sl],
+                np.asarray(col_ub)[sl], max_iter=max_iter, dtype=dtype,
+                start_basis=_slice_warm(start_basis, sl),
+                max_chunk=max_chunk, device=dev))
+        return concat_results(parts)
+
+    Mp, Np = _bucket(M), _bucket(N)
+    Bp = _bucket_batch(B0, Mp)
+    if max_iter is None:
+        max_iter = 50 * (Mp + Np) + 500
+    A_p = np.zeros((Bp, Mp, Np), np_dt)
+    A_p[:B0, :M, :N] = A
+    if Bp > B0 > 0:
+        A_p[B0:, :M, :N] = A[0]
+
+    full_c, lb, ub = _pad_batch_inputs(
+        types.SimpleNamespace(M=M, N=N, Mp=Mp, Np=Np), c2, row_lb, row_ub,
+        col_lb, col_ub, Bp, np_dt)
+    b0 = u0 = None
+    if start_basis is not None:
+        b0, u0 = _pad_warm(start_basis, Mp, Mp + Np, B0, Bp)
+        b0, u0 = _put(b0, dev), _put(u0, dev)
+    with _tf32_off():
+        out = _solve_tableau_segmented(
+            _put(A_p, dev), _put(full_c, dev), _put(lb, dev), _put(ub, dev),
+            b0, u0, max_iter)
+    return _to_result(out, B0, M, N)

@@ -87,9 +87,9 @@ class Options:
     #   kernel or runs distributed
     checkpoint_path: str = ""      # snapshot phase-2 state here per round
     checkpoint_every: int = 1      # rounds between snapshots
-    profile_dir: str = ""          # profiler trace directory (not ported)
-    distributed: bool = False      # shard LP rounds over processes (not
-    #   ported)
+    profile_dir: str = ""          # write a torch.profiler Chrome trace here
+    distributed: bool = False      # shard LP rounds over the processes of
+    #   the torch.distributed group (parallel/distributed.py)
     mesh_axes: tuple = ()          # multi-chip sharding of the LP solves
     #   over the local device mesh: ("dp",) shards the frontier batch,
     #   ("tp",) shards the within-LP linear algebra (A columns, pricing

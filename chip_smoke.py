@@ -45,8 +45,11 @@ Phases, one output line (or block) each:
    (random_vlp(q=5, m=1000, n=2000), P2 LP 1011x2006, B=128), bench.py's
    round pattern through the port's P2 template with ipm_min=2000: one
    cold solve and three warm rounds from the template's carried
-   interior point, at float32 and at float64.  The host HiGHS fallback
-   is capped at 0 LPs (the reference's 32 would take 12-22 s per LP):
+   interior point at float32, the cold solve and one warm round at
+   float64 (its rounds 2 and 3 were cut to keep the script inside its
+   time limit: they took 68 s and up to 144 s of host HiGHS).  The host
+   HiGHS fallback is capped at 0 LPs (the reference's 32 would take
+   12-22 s per LP):
    the LPs it would take are counted, ITLIM ones solved by HiGHS here,
    and up to two loose ones per dtype held to HiGHS.  Per round: wall
    and device seconds, IPM iterations, statuses, quality, polish, the
@@ -65,7 +68,27 @@ Phases, one output line (or block) each:
    n halved from 300 and 600, which took 293 s);
 12. the interior-point method on the card against the CPU on the random
    batches of tests/test_ipm.py (float64 to 1e-9, float32 to 1e-3);
-13. the result lines.
+13. many VLPs in lockstep at BASELINE config #5's scale: 10,000
+   instances random_vlp(q=3, m=10, n=8, seed=s) at float64 through
+   algs.many.solve_many (bounded=True), every Benson round one merged
+   batch of per-instance-matrix LPs (P2 LP 17x12) through the 3-D
+   tableau path.  Gates: every status OPTIMAL; 32 instances spread over
+   the range equal to the serial solve() on the card within 1e-7 and
+   the oracle at 1e-6; the first 64 instances on the card and on the
+   CPU with equal LP and round counts and vertex sets within 1e-7; the
+   largest round re-solved at max_chunk 256, 2,048, 16,384 and 65,536
+   with identical status, iters and basis per LP.  Printed: instances/s,
+   LPs/s, LPs, rounds, chunked device solves, the seconds of
+   _merged_solve split into host stacking/padding/upload, device solve
+   and read-back (synchronised host clock) against the host polytope
+   work, and the max_chunk times.  Then three shapes x 200 instances
+   through the per-group threads, 6 of them equal to serial;
+14. the run-time modules on the card: checkpoint_path on example10 at
+   float64, then resume= from the last snapshot to the uninterrupted
+   run's vertex set within 1e-7; distributed=True on one process on
+   example05 equal to the plain solve, with the oracle at 1e-7;
+   profile_dir leaves a Chrome trace that holds CUDA kernel events;
+15. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -83,10 +106,13 @@ result lines (for iterating on one phase).
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -111,10 +137,20 @@ EX10_P2 = (350, 347)  # example10's P2 LP, padded to Mp=384, NT=768
 IPM_CONFIG = dict(q=5, m=1000, n=2000, seed=7)
 IPM_B = 128
 IPM_MIN = 2000
+IPM_WARM_ROUNDS = {"float32": 3, "float64": 1}
 # the interior-point phase's mid-size VLP: random_vlp(q, m, n), whose P2
 # LP (m+2q+1) x (n+q+1) has M + N >= IPM_VLP_MIN
 IPM_VLP = (2, 150, 300)
 IPM_VLP_MIN = 450
+# BASELINE config #5 (scale_many.py): N instances random_vlp(**MANY_VLP,
+# seed=s), bounded, float64; the max_chunk settings compared on the
+# largest merged round; the heterogeneous run's shapes (q, m, n) and
+# seed offsets, tests/test_many.py's, HETERO_N instances of each
+MANY_N = 10_000
+MANY_VLP = dict(q=3, m=10, n=8)
+MANY_CHUNKS = (256, 2048, 16384, 65536)
+HETERO = (((2, 6, 5), 0), ((3, 10, 8), 100), ((2, 4, 9), 200))
+HETERO_N = 200
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -933,9 +969,9 @@ def phase_ipm_config4():
 
 
 def _ipm_rounds(dtype, highs):
-    """One dtype of phase 10: the cold solve and three warm rounds (each
-    started from the template's carried interior point, as in the JAX
-    package), then LPs 0-3 of the cold round and up to two LPs bound
+    """One dtype of phase 10: the cold solve and IPM_WARM_ROUNDS[dtype]
+    warm rounds (each started from the template's carried interior
+    point, as in the JAX package), then LPs 0-3 of the cold round and up to two LPs bound
     for the host against HiGHS (LPs 0-3 solved once, ``highs``)."""
     from bensolve_tpu_torch.lp import ipm, simplex
 
@@ -946,7 +982,7 @@ def _ipm_rounds(dtype, highs):
             f"B={IPM_B}, ipm_min={IPM_MIN}; host HiGHS fallback capped at "
             f"0 LPs (the reference's cap is 32, at 12-22 s per LP here)")
     loose = []
-    for r in range(4):
+    for r in range(1 + IPM_WARM_ROUNDS[dtype]):
         ub = extra_ub if r == 0 else extra_ub * (1.0 - 0.002 * r)
         calls = ipm.CALLS
         with _IPMClock(split=(r == 0)) as clock:
@@ -1118,6 +1154,300 @@ def phase_ipm_vs_cpu():
             f"iterations card {card.iters.tolist()} cpu {cpu.iters.tolist()}")
 
 
+def _point_sets_equal(a, b, tol, what):
+    """Both results OPTIMAL with equally many upper-image points, each
+    within tol (max norm) of one of the other's; returns the distance."""
+    if a.status.name != "OPTIMAL" or b.status.name != "OPTIMAL":
+        raise AssertionError(f"{what}: status {a.status} / {b.status}")
+    if a.primal_points.shape != b.primal_points.shape:
+        raise AssertionError(f"{what}: {len(a.primal_points)} points "
+                             f"against {len(b.primal_points)}")
+    return _sets_close(a.primal_points, b.primal_points, tol)
+
+
+class _ManyClock:
+    """Synchronised host clocks around the many-VLP engine's stages:
+    _merged_solve as a whole, inside it the device solve of every chunk
+    (simplex._solve_tableau_segmented) and the read-back
+    (simplex._to_result), and beside it the host stages of a round.
+    Also keeps the inputs of the largest merged round.  For one
+    lockstep group: the clocks are not thread-safe."""
+
+    def __init__(self):
+        from bensolve_tpu_torch.algs import many
+        from bensolve_tpu_torch.lp import simplex
+
+        self.many, self.simplex = many, simplex
+        self.seconds = {k: 0.0 for k in (
+            "merged", "device", "readback", "gather", "apply", "finish")}
+        self.chunks = 0
+        self.batches = []       # LPs per merged round
+        self.largest = None     # (args, kw) of the largest round
+
+    def _timed(self, key, fn, sync=False):
+        def run(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        many, sx = self.many, self.simplex
+        self.real = {(many, n): getattr(many, n) for n in (
+            "_merged_solve", "_gather_round_requests",
+            "_apply_round_results", "_finish_instance")}
+        self.real.update({(sx, n): getattr(sx, n) for n in (
+            "_solve_tableau_segmented", "_to_result", "solve_batch")})
+        many._merged_solve = self._timed("merged", many._merged_solve, True)
+        many._gather_round_requests = self._timed(
+            "gather", many._gather_round_requests)
+        many._apply_round_results = self._timed(
+            "apply", many._apply_round_results)
+        many._finish_instance = self._timed("finish", many._finish_instance)
+        segmented = self._timed("device", sx._solve_tableau_segmented, True)
+
+        def counted(*a, **kw):
+            self.chunks += 1
+            return segmented(*a, **kw)
+
+        sx._solve_tableau_segmented = counted
+        sx._to_result = self._timed("readback", sx._to_result, True)
+        real_solve = sx.solve_batch
+
+        def recorded(*a, **kw):
+            B = a[1].shape[0]
+            if not self.batches or B > max(self.batches):
+                self.largest = (a, kw)
+            self.batches.append(B)
+            return real_solve(*a, **kw)
+
+        sx.solve_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.real.items():
+            setattr(mod, name, fn)
+
+
+def _many_chunk_comparison(clock):
+    """The largest merged round at each max_chunk, timed with a
+    synchronised host clock (largest chunk first, and once more at the
+    end for the spread): status, iters and basis per LP must not depend
+    on the chunk."""
+    from bensolve_tpu_torch.lp import simplex
+
+    args, kw = clock.largest
+    B = args[1].shape[0]
+    order = sorted(MANY_CHUNKS, reverse=True)
+    ref, lines = None, []
+    for k in order + order[:1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = simplex.solve_batch(*args, **dict(kw, max_chunk=k))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if ref is None:
+            ref = res
+        for f in ("status", "iters", "basis"):
+            if not (getattr(res, f) == getattr(ref, f)).all():
+                raise AssertionError(f"many: {f} at max_chunk {k} differs "
+                                     f"from max_chunk {order[0]}")
+        lines.append(f"{k}: {secs:.3f} s, {B / secs:.0f} LPs/s in "
+                     f"{-(-B // k)} chunks")
+    if not (ref.status == simplex.OPTIMAL).all():
+        raise AssertionError("many: the recorded round is not all OPTIMAL")
+    log(f"[many] max_chunk on the largest round ({B} LPs, pivots max "
+        f"{int(ref.iters.max())} mean {ref.iters.mean():.1f}; status, iters "
+        f"and basis identical per LP): " + "; ".join(lines)
+        + f"; the 3-D default is {simplex.MAX_CHUNK_3D}")
+
+
+def phase_many():
+    """BASELINE config #5 through algs.many.solve_many on the card."""
+    from bensolve_tpu_torch import examples, solve
+    from bensolve_tpu_torch.algs import many
+    from bensolve_tpu_torch.vlp.options import Options
+
+    n_inst = MANY_N
+    t0 = time.perf_counter()
+    vlps = [examples.random_vlp(**MANY_VLP, seed=s) for s in range(n_inst)]
+    t_make = time.perf_counter() - t0
+    opt = Options(bounded=True, write_files=False, device="cuda")
+    with _ManyClock() as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = many.solve_many(vlps, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    bad = [i for i, r in enumerate(rs) if r.status.name != "OPTIMAL"]
+    if bad:
+        raise AssertionError(f"many: {len(bad)} of {n_inst} instances not "
+                             f"OPTIMAL (first {bad[0]}: {rs[bad[0]].status})")
+    lps = sum(r.stats.lps for r in rs)
+    rounds = max(r.stats.rounds for r in rs)
+    sec = clock.seconds
+    stack = sec["merged"] - sec["device"] - sec["readback"]
+    setup = wall - sum(sec[k] for k in ("merged", "gather", "apply",
+                                        "finish"))
+    log(f"[many] config #5: {n_inst} x random_vlp({MANY_VLP}) float64 "
+        f"bounded, made in {t_make:.2f} s; all OPTIMAL in {wall:.2f} s = "
+        f"{n_inst / wall:.1f} instances/s, {lps / wall:.0f} LPs/s; "
+        f"{lps} LPs, {rounds} lockstep rounds (+ the seed round), "
+        f"{len(clock.batches)} merged batches (largest "
+        f"{max(clock.batches)} LPs) in {clock.chunks} chunked device "
+        f"solves; points {sum(len(r.primal_points) for r in rs)} pivots "
+        f"{sum(r.stats.pivots for r in rs)}")
+    log(f"[many] _merged_solve {sec['merged']:.2f} s (synchronised host "
+        f"clock) = host stacking, padding and upload {stack:.2f} s + "
+        f"device solve {sec['device']:.2f} s + read-back "
+        f"{sec['readback']:.2f} s; host polytope work: gathering the "
+        f"frontiers {sec['gather']:.2f} s, applying the cuts "
+        f"{sec['apply']:.2f} s, epilogue {sec['finish']:.2f} s, instance "
+        f"set-up and the rest {setup:.2f} s; device solve "
+        f"{sec['device'] / wall:.3f} of the wall, host "
+        f"{1 - sec['device'] / wall:.3f}")
+    _many_chunk_comparison(clock)
+
+    # 32 instances spread over the range against the serial solve()
+    picks = sorted({int(i) for i in np.linspace(0, n_inst - 1, 32)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst, gap = 0.0, 0.0
+    for i in picks:
+        serial = solve(vlps[i], opt)
+        worst = max(worst, _point_sets_equal(rs[i], serial, 1e-7,
+                                             f"many instance {i}"))
+        gap = max(gap, check_support(rs[i], 1e-6))
+    log(f"[many] {len(picks)} instances spread over the range: vertex sets "
+        f"within {worst:.1e} of the serial solve() on the card (limit "
+        f"1e-7), support oracle worst gap {gap:.1e} (limit 1e-6); "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the first 64 instances on the card against the CPU
+    t0 = time.perf_counter()
+    cpu = many.solve_many(vlps[:64], Options(bounded=True, write_files=False,
+                                             device="cpu"))
+    t_cpu = time.perf_counter() - t0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rs[:64], cpu)):
+        if (a.stats.lps, a.stats.rounds) != (b.stats.lps, b.stats.rounds):
+            raise AssertionError(
+                f"many instance {i}: card {a.stats.lps} LPs "
+                f"{a.stats.rounds} rounds, CPU {b.stats.lps} / "
+                f"{b.stats.rounds}")
+        worst = max(worst, _point_sets_equal(a, b, 1e-7,
+                                             f"many instance {i} (CPU)"))
+    log(f"[many] first {len(cpu)} instances: card and CPU give equal LP "
+        f"and round counts and vertex sets within {worst:.1e} (limit "
+        f"1e-7); solve_many on the CPU {t_cpu:.2f} s")
+    _many_heterogeneous(opt)
+
+
+def _many_heterogeneous(opt):
+    """Three shapes through the per-group threads of _run_groups_ep."""
+    from bensolve_tpu_torch import examples, solve
+    from bensolve_tpu_torch.algs import many
+
+    vlps = []
+    for s in range(HETERO_N):
+        for (q, m, n), off in HETERO:
+            vlps.append(examples.random_vlp(q=q, m=m, n=n, seed=off + s))
+    calls = []
+    real = many._run_groups_ep
+
+    def watched(groups, *a, **kw):
+        calls.append(len(groups))
+        return real(groups, *a, **kw)
+
+    many._run_groups_ep = watched
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = many.solve_many(vlps, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        many._run_groups_ep = real
+    if calls != [len(HETERO)]:
+        raise AssertionError(f"many: _run_groups_ep saw groups {calls}")
+    if any(r.status.name != "OPTIMAL" for r in rs):
+        raise AssertionError("many heterogeneous: not all OPTIMAL")
+    worst = 0.0
+    for i in (0, 1, 2, len(vlps) - 3, len(vlps) - 2, len(vlps) - 1):
+        worst = max(worst, _point_sets_equal(
+            rs[i], solve(vlps[i], opt), 1e-7, f"heterogeneous {i}"))
+    lps = sum(r.stats.lps for r in rs)
+    log(f"[many] heterogeneous: {len(HETERO)} shapes x {HETERO_N} "
+        f"instances through {len(HETERO)} group threads, all OPTIMAL in "
+        f"{wall:.2f} s ({len(vlps) / wall:.1f} instances/s, {lps} LPs); 6 "
+        f"instances within {worst:.1e} of the serial solve() (limit 1e-7)")
+
+
+def phase_aux():
+    """Checkpoint/resume, distributed=True on one process, and the
+    profiler, on the card."""
+    from bensolve_tpu_torch.io import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "example10.ckpt")
+        # a snapshot every 5th round: the last one lies up to 4 rounds
+        # before the end, so the resumed run has LPs left to solve
+        full, wall = _solve("example10", _options(checkpoint_path=ck,
+                                                  checkpoint_every=5))
+        _, _, meta = checkpoint.load_checkpoint(ck)
+        again, wall_r = _solve_resume("example10", _options(), ck)
+        dist = _point_sets_equal(full, again, 1e-7, "resume")
+        log(f"[aux] checkpoint: example10 float64 with a snapshot every 5th round "
+            f"{wall:.2f} s ({full.stats.rounds} rounds, {full.stats.lps} "
+            f"LPs, file {os.path.getsize(ck)} B); resumed from the last "
+            f"snapshot ({meta['phase']}, round {meta['round']}, "
+            f"{meta['lps']} LPs) in {wall_r:.2f} s to {again.stats.lps} "
+            f"LPs: upper-image points within {dist:.1e} of the "
+            f"uninterrupted run's (limit 1e-7)")
+
+        plain, _ = _solve("example05", _options())
+        shard, wall = _solve("example05", _options(distributed=True))
+        dist = _point_sets_equal(plain, shard, 1e-7, "distributed")
+        gap = check_support(shard, 1e-7)
+        log(f"[aux] distributed=True on one process: example05 in "
+            f"{wall:.2f} s, upper-image points within {dist:.1e} of the "
+            f"plain solve's (limit 1e-7), support oracle worst gap "
+            f"{gap:.1e} (limit 1e-7)")
+
+        prof = os.path.join(tmp, "prof")
+        r, wall = _solve("example05", _options(profile_dir=prof))
+        traces = glob.glob(os.path.join(prof, "*.json"))
+        if r.status.name != "OPTIMAL" or len(traces) != 1:
+            raise AssertionError(f"profile_dir: status {r.status}, traces "
+                                 f"{traces}")
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            raise AssertionError("profile_dir: the trace holds no CUDA "
+                                 "kernel event")
+        busy = sum(e.get("dur", 0) for e in kernels) / 1e6
+        log(f"[aux] profile_dir: example05 under torch.profiler in "
+            f"{wall:.2f} s; trace {os.path.getsize(traces[0])} B with "
+            f"{len(events)} events, {len(kernels)} CUDA kernel events "
+            f"({busy:.3f} s of kernels)")
+
+
+def _solve_resume(name, opt, path):
+    from bensolve_tpu_torch import examples, solve
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solve(examples.ALL[name](), opt, resume=path)
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1126,11 +1456,13 @@ def main() -> int:
     if shutil.which("nvidia-smi") is None:
         print("chip_smoke: nvidia-smi not found", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     phase_environment()
     only = _only(sys.argv[1:])
     if only is not None:
         for k in only:
             PHASES[k]()
+        log(f"[total] {time.perf_counter() - t_start:.0f} s")
         return 0
     phase_build()
     ex10, ex10_w, glob = phase_kernel()
@@ -1144,6 +1476,9 @@ def main() -> int:
     phase_ipm_config4()
     phase_ipm_e2e()
     phase_ipm_vs_cpu()
+    phase_many()
+    phase_aux()
+    log(f"[total] {time.perf_counter() - t_start:.0f} s")
     log(smi_line())
     common = {"route": "cuda", "source": KERNEL_SOURCE,
               "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
@@ -1171,7 +1506,7 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
           "5": phase_main_f64, "7": phase_dual_f32, "8": phase_tall,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,
-          "12": phase_ipm_vs_cpu}
+          "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux}
 
 
 def _only(argv):
@@ -1180,7 +1515,7 @@ def _only(argv):
         return None
     if argv[0] != "--only" or not set(argv[1:]) <= set(PHASES):
         raise SystemExit(f"usage: chip_smoke.py [--only PHASE ...] with "
-                         f"PHASE in {sorted(PHASES)}")
+                         f"PHASE in {sorted(PHASES, key=int)}")
     return argv[1:]
 
 

@@ -3,7 +3,9 @@ on the main path (primal and dual algorithm) and agree with their plain
 PyTorch version at one shape per variant and cluster size; the revised
 simplex and the interior-point method give on the card what they give on
 the CPU, with TF32 off; lp_ipm_min takes a float32 solve past the
-kernel's route to the interior-point method.
+kernel's route to the interior-point method; a per-instance-matrix LP
+batch and a 64-instance solve_many give on the card what they give on
+the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -271,3 +273,60 @@ def test_ipm_min_routes_f32_solve_past_the_kernel(cuda_device):
     assert res.status.name == "OPTIMAL"
     assert ipm.CALLS > calls
     assert gs.ROUTED == routed
+
+
+def batch_3d(seed, B=40, M=17, N=12):
+    """B bounded LPs, each with its own matrix, at config #5's P2 shape."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, M, N)) / np.sqrt(N)
+    x0 = rng.random((B, N))
+    b = np.einsum("bmn,bn->bm", A, x0) + 0.5 + rng.random((B, M))
+    c = rng.standard_normal((B, N))
+    return (A, c, np.full((B, M), -np.inf), b, np.zeros((B, N)),
+            np.full((B, N), 10.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-9),
+                                       (np.float32, 1e-3)])
+def test_3d_batch_matches_cpu(dtype, tol, cuda_device):
+    """Per LP: equal status on the card and the CPU, at float64 equal
+    pivots and basis too, values within tol; chunking changes nothing."""
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    args = batch_3d(0)
+    card = sx.solve_batch(*args, dtype=dtype, device=cuda_device)
+    cpu = sx.solve_batch(*args, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(card.status, cpu.status)
+    assert (cpu.status == OPTIMAL).all()
+    if dtype is np.float64:
+        np.testing.assert_array_equal(card.iters, cpu.iters)
+        np.testing.assert_array_equal(card.basis, cpu.basis)
+    for field in ("obj", "x", "row_dual"):
+        np.testing.assert_allclose(getattr(card, field), getattr(cpu, field),
+                                   rtol=tol, atol=tol, err_msg=field)
+    chunked = sx.solve_batch(*args, dtype=dtype, device=cuda_device,
+                             max_chunk=16)
+    np.testing.assert_array_equal(chunked.status, card.status)
+    np.testing.assert_array_equal(chunked.iters, card.iters)
+    np.testing.assert_array_equal(chunked.basis, card.basis)
+
+
+@pytest.mark.cuda
+def test_solve_many_matches_cpu(cuda_device):
+    """64 instances of config #5's shape: equal status, LP and round
+    counts and vertex sets within 1e-7 on the card and on the CPU."""
+    from bensolve_tpu_torch.algs.many import solve_many
+
+    vlps = [examples.random_vlp(q=3, m=10, n=8, seed=s) for s in range(64)]
+    card = solve_many(vlps, Options(bounded=True, write_files=False,
+                                    device="cuda"))
+    cpu = solve_many(vlps, Options(bounded=True, write_files=False,
+                                   device="cpu"))
+    for a, b in zip(card, cpu):
+        assert a.status.name == b.status.name == "OPTIMAL"
+        assert (a.stats.lps, a.stats.rounds) == (b.stats.lps, b.stats.rounds)
+        pa = np.array(sorted(map(tuple, a.primal_points)))
+        pb = np.array(sorted(map(tuple, b.primal_points)))
+        assert pa.shape == pb.shape
+        np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-7)

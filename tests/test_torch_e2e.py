@@ -200,10 +200,7 @@ def test_cuda_device_without_card_raises(monkeypatch):
         bt.solve(vlp, bt.Options(write_files=False, device="cuda"))
 
 
-@pytest.mark.parametrize("opt", [dict(profile_dir="x"),
-                                 dict(mesh_axes=("dp",)),
-                                 dict(checkpoint_path="x"),
-                                 dict(distributed=True)])
+@pytest.mark.parametrize("opt", [dict(mesh_axes=("dp",))])
 def test_unported_options_raise(opt):
     vlp = problem_from_reference(examples.example01())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

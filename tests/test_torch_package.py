@@ -31,13 +31,36 @@ def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import bensolve_tpu_torch, bensolve_tpu_torch.examples, "
             "bensolve_tpu_torch.lp.group_simplex, "
-            "bensolve_tpu_torch.lp.dual_simplex, bensolve_tpu_torch.convert; "
+            "bensolve_tpu_torch.lp.dual_simplex, bensolve_tpu_torch.convert, "
+            "bensolve_tpu_torch.algs.many, "
+            "bensolve_tpu_torch.parallel.distributed, "
+            "bensolve_tpu_torch.io.checkpoint, bensolve_tpu_torch.io.plot, "
+            "bensolve_tpu_torch.vlp.writer; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'bensolve_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-I", "-c", code, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_multiprocess_worker_leaves_jax_out(tmp_path):
+    """The port's multi-process worker, run as a single process group of
+    one, imports neither JAX nor the JAX package."""
+    worker = os.path.join(ROOT, "tests", "torch_multiproc_worker.py")
+    code = ("import runpy, socket, sys; sys.path.insert(0, sys.argv[1]); "
+            "s = socket.socket(); s.bind(('localhost', 0)); "
+            "port = s.getsockname()[1]; s.close(); "
+            "sys.argv = [sys.argv[2], 'allgather', str(port), '1', '0', "
+            "sys.argv[3]]; runpy.run_path(sys.argv[0], run_name='__main__'); "
+            "bad = sorted(m for m in sys.modules "
+            "if m == 'jax' or m.startswith(('jax.', 'bensolve_tpu.'))); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-I", "-c", code, ROOT, worker,
+                          str(tmp_path)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert (tmp_path / "allgather_0.npy").exists()
 
 
 @pytest.mark.parametrize("name", ["example01", "example08"])
