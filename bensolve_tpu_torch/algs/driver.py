@@ -147,7 +147,7 @@ def solve(vlp: VLPProblem, opt: Options | None = None,
     phases before it and its phase's seeding are skipped, and the main
     loop continues from the stored outer approximation."""
     opt = opt if opt is not None else Options()
-    opt.build_mesh()   # raises when mesh_axes asks for sharding
+    opt.build_mesh()   # the mesh of mesh_axes, built once and cached
     dev = simplex.resolve_device(opt.device)
     if opt.profile_dir:
         return _profiled(

@@ -11,10 +11,11 @@ list of VLP instances is:
   Benson round gathers all active instances' candidate LPs into ONE
   batch over per-instance constraint matrices (the 3-D-A path of
   lp/simplex.py) on ``Options.device``, so 1000 small VLPs cost the
-  same number of device solves as one.
-
-Sharding the merged batch over several devices (``mesh=``) is not
-ported yet.
+  same number of device solves as one;
+* optionally over a device mesh (``mesh=``, parallel/mesh.py): one
+  group's merged batch is cut into contiguous shards over the mesh's
+  first axis, one thread and stream each; several shape groups are
+  placed round-robin, group g on mesh entry g % n.
 
 The lockstep engine covers the bounded case (-b: phase2_init + primal
 phase 2, bslv_algs.c:943-1161); unbounded instances fall back to the
@@ -29,6 +30,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from bensolve_tpu_torch.algs import driver as _driver
 from bensolve_tpu_torch.algs import phases
@@ -37,6 +39,7 @@ from bensolve_tpu_torch.algs.solution import SolStatus, sol_init
 from bensolve_tpu_torch.algs.templates import INHOMOGENEOUS, P2Template
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.parallel import distributed as dist
+from bensolve_tpu_torch.parallel import mesh as pmesh
 from bensolve_tpu_torch.poly.polytope import POLY_EPS, PolytopePair, \
     make_lower_to_upper_v2h
 from bensolve_tpu_torch.vlp.options import Options
@@ -67,11 +70,13 @@ class _Instance:
         return (v.m, v.n, v.q, self.sol.r, self.t2.A_lp.shape)
 
 
-def _merged_solve(requests, opt):
+def _merged_solve(requests, opt, place=None):
     """Solve the union of per-instance LP batches in one call of the
-    tableau simplex on ``opt.device`` (like the JAX package, past the
-    LP router and its other backends).  ``requests``: list of
-    (inst, extra_ub (B_i, p)).  Returns per-instance LPResult slices."""
+    tableau simplex (like the JAX package, past the LP router and its
+    other backends).  ``place``: the torch device of the call, or a
+    mesh whose first axis shards the merged batch; None means
+    ``opt.device``.  ``requests``: list of (inst, extra_ub (B_i, p)).
+    Returns per-instance LPResult slices."""
     objs, rlbs, rubs, clbs, cubs, A3 = [], [], [], [], [], []
     sizes = []
     for inst, extra_ub in requests:
@@ -85,10 +90,13 @@ def _merged_solve(requests, opt):
         sizes.append(B_i)
         A3.append(np.broadcast_to(inst.t2.A_lp[None],
                                   (B_i,) + inst.t2.A_lp.shape))
+    place_kw = (dict(device=opt.device, mesh=place)
+                if isinstance(place, pmesh.Mesh)
+                else dict(device=opt.device if place is None else place))
     res = sx.solve_batch(
         np.concatenate(A3), np.concatenate(objs), np.concatenate(rlbs),
         np.concatenate(rubs), np.concatenate(clbs), np.concatenate(cubs),
-        dtype=np.dtype(opt.lp_dtype).type, device=opt.device)
+        dtype=np.dtype(opt.lp_dtype).type, **place_kw)
     out, off = [], 0
     for B_i in sizes:
         sl = slice(off, off + B_i)
@@ -107,13 +115,10 @@ def solve_many(vlps: list[VLPProblem], opt: Options | None = None, *,
     multi-process execution, entries owned by other processes are None
     (instance-level DP across processes, SURVEY.md section 2.2).
 
-    ``mesh``: sharding the merged LP batch over several devices is not
-    ported yet; anything but None raises."""
+    ``mesh``: an optional ``parallel.mesh.Mesh`` whose FIRST axis shards
+    the merged LP batch (instance-level DP across devices); with
+    several shape groups, group g runs on entry g % n of the mesh."""
     opt = opt if opt is not None else Options()
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device LP sharding is not ported to "
-            "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
     sx.resolve_device(opt.device)
     local = set(dist.shard_indices(len(vlps)).tolist())
     results: list = [None] * len(vlps)
@@ -135,35 +140,58 @@ def solve_many(vlps: list[VLPProblem], opt: Options | None = None, *,
         # groups (different LP templates) advance ROUND-LOCKSTEP: every
         # group's merged batch is SUBMITTED before any group's results
         # are consumed
-        _run_groups_ep(groups, opt)
+        _run_groups_ep(groups, opt, mesh)
     else:
         for group in groups:
-            _run_lockstep(group, opt)
+            _run_lockstep(group, opt, mesh)
     for group in groups:
         for inst in group:
             results[inst.index] = _finish_instance(inst, opt)
     return results
 
 
-def _run_groups_ep(groups, opt) -> None:
+def _group_place(g, mesh):
+    """Where group g of several solves: ``opt.device`` (None) without a
+    mesh, else entry g % n of the mesh, on a stream of its own (the JAX
+    package's expert placement)."""
+    if mesh is None:
+        return None
+    devices = list(mesh.devices.flat)
+    return devices[g % len(devices)]
+
+
+def _on_stream(place, fn, *args):
+    """fn(*args) inside a CUDA stream of its own when ``place`` is a
+    CUDA device; otherwise plainly."""
+    if isinstance(place, torch.device):
+        return pmesh.on_own_stream(place, fn, *args)
+    return fn(*args)
+
+
+def _run_groups_ep(groups, opt, mesh=None) -> None:
     """Advance heterogeneous lockstep groups concurrently: per global
     round, submit each active group's merged LP batch, then apply every
     group's results in group order (so the outcome does not depend on
-    which thread finishes first).  Every group runs on ``opt.device``."""
+    which thread finishes first).  Every group runs on ``opt.device``,
+    or with a mesh on its entry (_group_place)."""
     # per-group solver threads: _merged_solve blocks on the read-back of
     # its results, so one thread per group lets group g+1's host
     # stacking and device work run while g's results come back.  The
     # threads share no mutable state: each works on its own group, and
     # the 3-D LP path keeps no cache.
+    places = [_group_place(g, mesh) for g in range(len(groups))]
     with ThreadPoolExecutor(max_workers=max(len(groups), 1)) as pool:
-        list(pool.map(lambda group: _seed_group(group, opt), groups))
+        list(pool.map(lambda g: _on_stream(places[g], _seed_group,
+                                           groups[g], opt, places[g]),
+                      range(len(groups))))
         while True:
             pending = []
-            for group in groups:
+            for g, group in enumerate(groups):
                 reqs = _gather_round_requests(group)
                 if reqs:
                     batch_insts, cand_lists, requests = reqs
-                    fut = pool.submit(_merged_solve, requests, opt)
+                    fut = pool.submit(_on_stream, places[g], _merged_solve,
+                                      requests, opt, places[g])
                     pending.append((batch_insts, cand_lists, fut))
             if not pending:
                 break
@@ -172,15 +200,16 @@ def _run_groups_ep(groups, opt) -> None:
                                      opt)
 
 
-def _seed_group(group, opt) -> None:
-    """Seed round: one LP per column of R for every instance."""
+def _seed_group(group, opt, place=None) -> None:
+    """Seed round: one LP per column of R for every instance, solved at
+    ``place`` (see _merged_solve)."""
     requests = []
     for inst in group:
         r = inst.sol.r
         ub = np.full((r, r), np.inf)
         np.fill_diagonal(ub, 0.0)
         requests.append((inst, ub))
-    for inst, res in zip(group, _merged_solve(requests, opt)):
+    for inst, res in zip(group, _merged_solve(requests, opt, place)):
         inst.stats.lps += inst.sol.r
         q = inst.vlp.q
         for j in range(inst.sol.r):
@@ -254,18 +283,19 @@ def _apply_round_results(batch_insts, cand_lists, results, opt) -> None:
                 P.sltn[idx] = True
 
 
-def _run_lockstep(group, opt) -> None:
+def _run_lockstep(group, opt, place=None) -> None:
     """Advance a shape-homogeneous group of bounded instances through
     seeding + the phase-2 primal main loop, one merged LP batch per
-    round (the batched analogue of bslv_algs.c:976-1081)."""
-    _seed_group(group, opt)
+    round (the batched analogue of bslv_algs.c:976-1081), solved at
+    ``place`` (see _merged_solve)."""
+    _seed_group(group, opt, place)
     while True:
         reqs = _gather_round_requests(group)
         if reqs is None:
             break
         batch_insts, cand_lists, requests = reqs
         _apply_round_results(batch_insts, cand_lists,
-                             _merged_solve(requests, opt), opt)
+                             _merged_solve(requests, opt, place), opt)
 
 
 def _finish_instance(inst, opt):

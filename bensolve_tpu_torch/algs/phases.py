@@ -171,10 +171,12 @@ def orthogonal_vector(C: np.ndarray, i: int) -> None:
 
 def _lp_kw(opt: Options, method) -> dict:
     """Template keywords from the options: every LP of a template runs
-    at ``opt.lp_dtype`` on ``opt.device``."""
+    at ``opt.lp_dtype`` on ``opt.device``, or over the mesh of
+    ``opt.mesh_axes``."""
     return dict(dtype=opt.lp_dtype, lp_verbose=opt.lp_message_level,
                 lp_method=method, max_batch=opt.lp_max_batch,
-                ipm_min=opt.lp_ipm_min, device=opt.device)
+                ipm_min=opt.lp_ipm_min, device=opt.device,
+                mesh=opt.build_mesh())
 
 
 def phase0(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
@@ -638,7 +640,8 @@ def _direction_preimages(sol: SolutionContext, vlp: VLPProblem,
     """Solve P2-hom (eta row freed) for every ideal vertex of the upper
     image and store x as its pre-image."""
     t2h = P2Template(vlp, P_eff, sol.Z, sol.eta, HOMOGENEOUS,
-                     dtype=opt.lp_dtype, device=opt.device)
+                     dtype=opt.lp_dtype, device=opt.device,
+                     mesh=opt.build_mesh())
     idxs = [int(i) for i in poly.live() if poly.ideal[i]]
     if not idxs:
         return

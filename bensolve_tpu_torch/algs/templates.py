@@ -45,7 +45,7 @@ class _TemplateBase:
     def __init__(self, vlp: VLPProblem, P_eff: np.ndarray, homogeneous: bool,
                  dtype=np.float64, lp_verbose: int = 0,
                  lp_method: str = "auto", max_batch: int | None = None,
-                 ipm_min: int = 0, device: str = "cuda"):
+                 ipm_min: int = 0, device: str = "cuda", mesh=None):
         self.dtype = np.dtype(dtype).type
         # Options.lp_ipm_min: M+N threshold above which the router takes
         # the interior-point method (0 = off; BENSOLVE_IPM_MIN also
@@ -56,6 +56,11 @@ class _TemplateBase:
         self.max_batch = max_batch
         # torch device of every LP tensor (Options.device)
         self.device = device
+        # device mesh for the LP solves (Options.mesh_axes): the router's
+        # backends shard each batch over its "dp" entries
+        # (parallel/mesh.py); warm re-solves through the dual simplex
+        # and the kept-tableau chain are off, as in the JAX package
+        self.mesh = mesh
         # -M / lp_message_level analogue (bslv_lp.c:200-215): >= 2 emits
         # one summary line per batched solve on stdout
         self.lp_verbose = lp_verbose
@@ -79,9 +84,9 @@ class _TemplateBase:
         """True when a warm re-solve should route through the DUAL
         simplex: this template's per-candidate data enters as row
         bounds (P2), so a parent optimal basis stays dual feasible.
-        Gated to tableau-sized shapes; BENSOLVE_NO_DUAL_WARM=1 opts out
-        for A/B measurement."""
-        if warm is None:
+        Gated to tableau-sized shapes and runs without a mesh;
+        BENSOLVE_NO_DUAL_WARM=1 opts out for A/B measurement."""
+        if warm is None or self.mesh is not None:
             return False
         if not getattr(self, "_bound_change_resolve", False):
             return False
@@ -167,6 +172,7 @@ class _TemplateBase:
                    else simplex.STATE_WARM_MAX_AGE // 4)
         M0, N0 = A_lp.shape if not hasattr(A_lp, "M") else (A_lp.M, A_lp.N)
         keep = (not _chunked and self._bound_change_resolve
+                and self.mesh is None
                 and os.environ.get("BENSOLVE_NO_STATE_WARM") != "1"
                 and max(B, 8) * simplex._bucket(M0)
                 * (simplex._bucket(M0) + simplex._bucket(N0))
@@ -179,11 +185,13 @@ class _TemplateBase:
         if dual_route:
             from bensolve_tpu_torch.lp.dual_simplex import solve_batch_dual
 
+            # without the mesh, as the JAX package calls it: on the
+            # first dp entry's device
             out = solve_batch_dual(A_lp, obj, row_lb, row_ub, col_lb,
                                    col_ub, start_basis=warm,
                                    dtype=self.dtype,
                                    start_state=state_rows,
-                                   keep_state=keep, device=self.device)
+                                   keep_state=keep, device=self._device())
             if keep:
                 res, kept = out
                 if kept is not None and kept.age <= age_cap:
@@ -201,7 +209,7 @@ class _TemplateBase:
                                    col_ub, start_basis=warm,
                                    dtype=self.dtype, ipm_min=self.ipm_min,
                                    verbose=self.lp_verbose,
-                                   device=self.device,
+                                   device=self.device, mesh=self.mesh,
                                    warm_interior=warm_interior)
             self._kept_state = None
         ok = np.flatnonzero(res.status == simplex.OPTIMAL)
@@ -225,6 +233,15 @@ class _TemplateBase:
                   f"mean={float(res.iters.mean()):.1f} "
                   f"warm={'yes' if warm is not None else 'no'}")
         return res
+
+    def _device(self):
+        """Where an unsharded solve runs: ``device``, or under a mesh the
+        first entry of its dp axis."""
+        if self.mesh is None:
+            return self.device
+        from bensolve_tpu_torch.parallel.mesh import shard_entries
+
+        return shard_entries(self.mesh, "dp")[0]
 
     def prefers_shared_warm(self) -> bool:
         """True when per-candidate (B, M) warm bases would knock the
@@ -272,9 +289,9 @@ class P2Template(_TemplateBase):
     def __init__(self, vlp, P_eff, ZR: np.ndarray, eta: np.ndarray,
                  homogeneous: bool, dtype=np.float64, lp_verbose: int = 0,
                  lp_method: str = "auto", max_batch: int | None = None,
-                 ipm_min: int = 0, device: str = "cuda"):
+                 ipm_min: int = 0, device: str = "cuda", mesh=None):
         super().__init__(vlp, P_eff, homogeneous, dtype, lp_verbose,
-                         lp_method, max_batch, ipm_min, device)
+                         lp_method, max_batch, ipm_min, device, mesh)
         m, n, q = self.m, self.n, self.q
         ZR = np.asarray(ZR, float)
         self.p = ZR.shape[1]
@@ -347,9 +364,9 @@ class P1Template(_TemplateBase):
     def __init__(self, vlp, P_eff, eta: np.ndarray, homogeneous: bool,
                  dtype=np.float64, lp_verbose: int = 0,
                  lp_method: str = "auto", max_batch: int | None = None,
-                 ipm_min: int = 0, device: str = "cuda"):
+                 ipm_min: int = 0, device: str = "cuda", mesh=None):
         super().__init__(vlp, P_eff, homogeneous, dtype, lp_verbose,
-                         lp_method, max_batch, ipm_min, device)
+                         lp_method, max_batch, ipm_min, device, mesh)
         m, n, q = self.m, self.n, self.q
         A_lp = self._alloc_lp_matrix(1, 0)       # (m+q+1, n+q)
         A_lp[m + q, n:n + q] = np.asarray(eta, float)

@@ -28,23 +28,24 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
     * float32 batches on a CUDA device whose shape the kernel takes: the
       per-LP simplex kernel (lp/group_simplex.py); a per-instance warm
       start falls through;
-    * otherwise: the lockstep tableau simplex (lp/simplex.py)."""
+    * otherwise: the lockstep tableau simplex (lp/simplex.py).
+
+    ``mesh`` (Options.mesh_axes): as in the JAX package, a meshed batch
+    takes neither the interior-point method nor the kernel; the revised
+    and the tableau simplex shard it over the mesh (parallel/mesh.py)."""
     from bensolve_tpu_torch.lp import group_simplex, revised, simplex
 
     if isinstance(A, simplex._PreparedA):
         M, N = A.M, A.N
     else:
         M, N = np.asarray(A).shape[-2:]
-    if kw.pop("mesh", None) is not None:
-        raise NotImplementedError(
-            "mesh: multi-device LP sharding is not ported to "
-            "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
+    mesh = kw.pop("mesh", None)
     verbose = kw.pop("verbose", 0)
     # Options.lp_ipm_min and BENSOLVE_IPM_MIN: whichever enables the
     # route (the smaller threshold) wins
     ipm_min = kw.pop("ipm_min", 0) or (1 << 62)
     warm_interior = kw.pop("warm_interior", None)
-    if M + N >= min(ipm_min, _ipm_min_size()):
+    if mesh is None and M + N >= min(ipm_min, _ipm_min_size()):
         from bensolve_tpu_torch.lp import ipm
 
         ipm_kw = {}
@@ -57,14 +58,16 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
                                    device=kw.get("device", "cuda"), **ipm_kw)
     if N >= REVISED_RATIO * M:
         return revised.solve_batch_revised(A, c, row_lb, row_ub, col_lb,
-                                           col_ub, verbose=verbose, **kw)
+                                           col_ub, mesh=mesh, verbose=verbose,
+                                           **kw)
     device = kw.get("device", "cuda")
-    if _kernel_eligible(M, N, kw, device):
+    if mesh is None and _kernel_eligible(M, N, kw, device):
         res = group_simplex.try_solve_batch(A, c, row_lb, row_ub, col_lb,
                                             col_ub, **kw)
         if res is not None:
             return res
-    return simplex.solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, **kw)
+    return simplex.solve_batch(A, c, row_lb, row_ub, col_lb, col_ub,
+                               mesh=mesh, **kw)
 
 
 def _ipm_min_size() -> int:

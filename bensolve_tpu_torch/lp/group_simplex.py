@@ -511,7 +511,7 @@ def lp_batch_group(A, c, row_lb, row_ub, col_lb, col_ub, *,
         # W0 = Binv @ E for the shared warm basis (one float32 LU)
         b0_t = sx._put(basis0.astype(np.int64), dev)
         LU, piv = sx._lu_factor(sx._batched_basis_matrices(A_t, b0_t[None]))
-        W0 = torch.linalg.lu_solve(LU, piv, E[None])[0].contiguous()
+        W0 = sx._lu_solve(LU, piv, E[None])[0].contiguous()
 
     # default nonbasic rest pattern: only-upper-bounded rest at ub
     in_b = np.zeros(NT, bool)

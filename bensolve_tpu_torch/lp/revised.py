@@ -93,7 +93,7 @@ def _initial_rstate(A, c, lb, ub, basis0=None, at_upper0=None, Brows0=None):
         in_basis.scatter_(1, basis, True)
         Brows = Brows0
         LU, piv = sx._lu_factor(Brows.transpose(1, 2))
-        Binv = torch.linalg.lu_solve(LU, piv, eye.expand(B, M, M))
+        Binv = sx._lu_solve(LU, piv, eye.expand(B, M, M))
     else:
         b0 = basis0.long()
         basis = b0.expand(B, M).clone()
@@ -102,7 +102,7 @@ def _initial_rstate(A, c, lb, ub, basis0=None, at_upper0=None, Brows0=None):
         in_basis = in_basis1.expand(B, NT).clone()
         Brows1 = Brows0[0]
         LU, piv = sx._lu_factor(Brows1.T[None])
-        Binv0 = torch.linalg.lu_solve(LU, piv, eye[None])[0]
+        Binv0 = sx._lu_solve(LU, piv, eye[None])[0]
         Binv = Binv0.expand(B, M, M).clone()
         Brows = Brows1.expand(B, M, M).clone()
     fin_lb, fin_ub = torch.isfinite(lb), torch.isfinite(ub)
@@ -320,7 +320,7 @@ def _refactor(A, c, lb, ub, st: _RState) -> _RState:
     dev, dtype = c.device, c.dtype
     eye = torch.eye(M, dtype=dtype, device=dev)
     LU, piv = sx._lu_factor(st.Brows.transpose(1, 2))
-    Binv = torch.linalg.lu_solve(LU, piv, eye.expand(B, M, M))
+    Binv = sx._lu_solve(LU, piv, eye.expand(B, M, M))
     zero = c.new_zeros(())
     zn = torch.where(st.in_basis, zero, _nb_value(lb, ub, st.at_upper))
     xb = torch.bmm(Binv, -sx._e_matmul(A, zn)[:, :, None])[:, :, 0]
@@ -512,15 +512,21 @@ def _prepare_scaled(A, dtype, device) -> _ScaledA:
 def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
                         max_iter: int | None = None, dtype=np.float64,
                         start_basis=None, max_chunk: int | None = None,
-                        device="cuda", verbose: int = 0) -> LPResult:
+                        device="cuda", mesh=None,
+                        verbose: int = 0) -> LPResult:
     """Drop-in alternative to simplex.solve_batch for N >> M (same
     padding, chunking and warm-start contract).  A matrix that is not
     prepared yet is solved in its equilibrated form (exact power-of-two
     scales), and the solutions come back unscaled; basis indices and
     bound patterns are scale-invariant, so warm starts pass straight
     through.  ``device``:
-    the torch device every LP tensor lives on.  ``verbose`` >= 2 prints
-    one summary line per batched solve."""
+    the torch device every LP tensor lives on.  ``mesh``: a
+    ``parallel.mesh.Mesh`` (Options.mesh_axes): the padded batch, grown
+    until the "dp" axis divides it, is solved in contiguous shards over
+    the dp entries, in place of ``device``; every LP's basis inverse
+    stays whole on its entry (a "tp" axis splits nothing, see
+    parallel/mesh.py).  ``verbose`` >= 2 prints one summary line per
+    batched solve."""
     dev = sx.resolve_device(device)
     if not isinstance(A, sx._PreparedA):
         sc = _prepare_scaled(A, dtype, dev)
@@ -530,7 +536,7 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
             np.asarray(row_lb) * r[None, :], np.asarray(row_ub) * r[None, :],
             np.asarray(col_lb) / cv[None, :], np.asarray(col_ub) / cv[None, :],
             max_iter=max_iter, dtype=dtype, start_basis=start_basis,
-            max_chunk=max_chunk, device=dev, verbose=verbose)
+            max_chunk=max_chunk, device=dev, mesh=mesh, verbose=verbose)
         return LPResult(res.status, res.obj, res.x * cv[None, :],
                         res.s / r[None, :], res.row_dual * r[None, :],
                         res.col_dual / cv[None, :], res.iters,
@@ -553,35 +559,58 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 np.asarray(col_lb)[sl], np.asarray(col_ub)[sl],
                 max_iter=max_iter, dtype=dtype,
                 start_basis=sx._slice_warm(start_basis, sl),
-                max_chunk=max_chunk, device=dev, verbose=verbose))
+                max_chunk=max_chunk, device=dev, mesh=mesh,
+                verbose=verbose))
         return sx.concat_results(parts)
 
     B = c2.shape[0]
     Bp = sx._bucket_batch(B, Mp)
+    entries = None
+    if mesh is not None:
+        from bensolve_tpu_torch.parallel import mesh as pmesh
+
+        entries = pmesh.shard_entries(mesh, "dp")
+        Bp = pmesh.padded_batch(Bp, len(entries))
     if max_iter is None:
         # the generic shape-derived cap, bounded for huge-N instances
         max_iter = min(50 * (Mp + Np) + 500, 40 * Mp + 20000)
     full_c, lb, ub = sx._pad_batch_inputs(prep, c2, row_lb, row_ub,
                                           col_lb, col_ub, Bp, np_dt)
-    AT = prep.transposed()
+    lb1 = ub1 = b0 = u0 = brows = None
+    if start_basis is None:
+        if Mp >= PERTURB_MIN_M:
+            lb1, ub1 = _perturbed_bounds(lb, ub, np_dt)
+    else:
+        b0, u0 = sx._pad_warm(start_basis, Mp, Mp + Np, B, Bp)
+        brows = _host_brows(prep, b0, np_dt)
 
-    def put(a):
-        return sx._put(a, dev)
+    def solve(p, c_t, lb_t, ub_t, lb1_t, ub1_t, b_t, u_t, brows_t):
+        pert = None if lb1_t is None else (lb1_t, ub1_t)
+        return _solve_revised_segmented(p.dev, p.devT, c_t, lb_t, ub_t, b_t,
+                                        u_t, brows_t, max_iter, pert)
 
     with _tf32_off():
-        if start_basis is None:
-            pert = None
-            if Mp >= PERTURB_MIN_M:
-                lb1, ub1 = _perturbed_bounds(lb, ub, np_dt)
-                pert = (put(lb1), put(ub1))
-            out = _solve_revised_segmented(
-                prep.dev, AT, put(full_c), put(lb), put(ub), None, None,
-                None, max_iter, pert)
+        if entries is None:
+            prep.transposed()
+            out = solve(prep, *(None if a is None else sx._put(a, dev)
+                                for a in (full_c, lb, ub, lb1, ub1, b0, u0,
+                                          brows)))
         else:
-            b0, u0 = sx._pad_warm(start_basis, Mp, Mp + Np, B, Bp)
-            out = _solve_revised_segmented(
-                prep.dev, AT, put(full_c), put(lb), put(ub), put(b0),
-                put(u0), put(_host_brows(prep, b0, np_dt)), max_iter)
+            # each distinct device's A and A^T are made here, before the
+            # shard threads read them
+            preps = {d: sx._prepare_A(prep, np_dt, d)
+                     for d in dict.fromkeys(entries)}
+            for p in preps.values():
+                p.transposed()
+            per = b0 is not None and b0.ndim == 2
+            out = pmesh.map_shards(
+                entries, (full_c, lb, ub, lb1, ub1) + sx._batched_warm(b0, u0)
+                + (brows if per else None,),
+                lambda d, c_t, lb_t, ub_t, lb1_t, ub1_t, b_t, u_t, br_t:
+                solve(preps[d], c_t, lb_t, ub_t, lb1_t, ub1_t,
+                      *sx._shard_warm(b0, u0, b_t, u_t, d),
+                      br_t if br_t is not None or brows is None
+                      else sx._put(brows, d)))
     res = sx._to_result(out, B, M, N)
     if verbose >= 2:
         counts = dict(zip(*np.unique(res.status, return_counts=True)))

@@ -174,11 +174,55 @@ def _batched_basis_matrices(A, bases):
     return _E(A).T[bases].transpose(1, 2)
 
 
+# order from which the CPU factors a batch one matrix at a time (below)
+_CPU_LU_ONE_BY_ONE = 128
+# torch factors and solves batched LUs on the card through MAGMA, which
+# is not safe to enter from several threads at once.  The threads of
+# parallel/mesh.py (the mesh's shards, the many-VLP engine's groups) set
+# _SHARD_THREAD.on; their CUDA LU calls take turns, each finished on its
+# stream before the next begins.  Other threads call torch directly.
+_CUDA_LU_LOCK = threading.Lock()
+_SHARD_THREAD = threading.local()
+
+
+@contextlib.contextmanager
+def _lu_turn(t):
+    if t.device.type != "cuda" or not getattr(_SHARD_THREAD, "on", False):
+        yield
+        return
+    with _CUDA_LU_LOCK:
+        yield
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def _lu_solve(LU, piv, B, **kw):
+    """torch.linalg.lu_solve, taking its turn on the card (_lu_turn)."""
+    with _lu_turn(LU):
+        return torch.linalg.lu_solve(LU, piv, B, **kw)
+
+
 def _lu_factor(Bmat):
     """Batched LU with partial pivoting; numerically singular pivots are
     clamped to +-tiny (as the JAX package does) so the solves return
-    whatever accuracy survives instead of inf/nan."""
-    LU, piv, _ = torch.linalg.lu_factor_ex(Bmat)
+    whatever accuracy survives instead of inf/nan.
+
+    On the CPU with more than one intra-op thread, a batch of matrices
+    sent to torch.linalg.lu_factor_ex at once made oneMKL's getrf report
+    "Parameter 6 was incorrect on entry to DLASWP" (SLASWP at float32)
+    and never return at order 256 (random matrices) and 350 (example10's
+    bases); one matrix per call does not.  So a CPU batch of order
+    _CPU_LU_ONE_BY_ONE = 128 or more, below the least order seen to
+    hang, is factored one matrix at a time."""
+    if (Bmat.device.type == "cpu" and Bmat.ndim == 3 and Bmat.shape[0] > 1
+            and Bmat.shape[-1] >= _CPU_LU_ONE_BY_ONE
+            and torch.get_num_threads() > 1):
+        parts = [torch.linalg.lu_factor_ex(Bmat[i:i + 1])
+                 for i in range(Bmat.shape[0])]
+        LU = torch.cat([p[0] for p in parts])
+        piv = torch.cat([p[1] for p in parts])
+    else:
+        with _lu_turn(Bmat):
+            LU, piv, _ = torch.linalg.lu_factor_ex(Bmat)
     tiny = 1e-30 if LU.dtype == torch.float64 else 1e-20
     d = LU.diagonal(dim1=-2, dim2=-1)
     sign = torch.where(d < 0, -tiny, tiny)
@@ -250,7 +294,7 @@ def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
         in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
         in_basis.scatter_(1, basis, True)
         LU, piv = _lu_factor(_batched_basis_matrices(A, basis))
-        W = torch.linalg.lu_solve(LU, piv, E.expand(B, M, NT))
+        W = _lu_solve(LU, piv, E.expand(B, M, NT))
     else:
         b0 = basis0.long()
         basis = b0.expand(B, M).clone()
@@ -258,7 +302,7 @@ def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
         in_basis1[b0] = True
         in_basis = in_basis1.expand(B, NT).clone()
         LU, piv = _lu_factor(_batched_basis_matrices(A, b0[None]))
-        W0 = torch.linalg.lu_solve(LU, piv, E[None])
+        W0 = _lu_solve(LU, piv, E[None])
         W = W0.expand(B, M, NT).clone()
     fin_lb, fin_ub = torch.isfinite(lb), torch.isfinite(ub)
     if at_upper0 is None:
@@ -445,8 +489,8 @@ def _final_solutions(A, c, lb, ub, basis, in_basis, at_upper, cB,
     zn = torch.where(in_basis, c.new_zeros(()), _nb_value(lb, ub, at_upper))
     rhs = -_e_matmul(A, zn)                                        # (B, M)
     LU, piv = _lu_factor(Bmat)
-    xb = torch.linalg.lu_solve(LU, piv, rhs[:, :, None])[:, :, 0]
-    y = torch.linalg.lu_solve(LU, piv, cB[:, :, None], adjoint=True)[:, :, 0]
+    xb = _lu_solve(LU, piv, rhs[:, :, None])[:, :, 0]
+    y = _lu_solve(LU, piv, cB[:, :, None], adjoint=True)[:, :, 0]
     z = zn.scatter(1, basis, xb)
     obj = (c * z).sum(dim=1)
     d = c - _e_rmatmul(A, y)
@@ -625,39 +669,53 @@ class _PreparedA:
 
 _A_CACHE: collections.OrderedDict = collections.OrderedDict()
 _A_CACHE_MAX = 8
+# held over every lookup, upload and eviction of _A_CACHE: the threads of
+# a mesh's shards and of the many-VLP engine's groups share the cache
+_A_CACHE_LOCK = threading.Lock()
 
 
 def _np_dtype(tdt: torch.dtype):
     return np.float32 if tdt == torch.float32 else np.float64
 
 
+def _exact_device(dev: torch.device) -> torch.device:
+    """``dev`` with its index: a bare "cuda" names the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _prepare_A(A, dtype, device) -> _PreparedA:
     """Pad ``A`` to bucketed dims and place it on ``device``, memoized by
     object identity, dtype and device (callers must not mutate ``A``
-    after first use)."""
+    after first use).  A prepared matrix is reused only on the exact
+    device it lives on (``cuda:1`` gets a copy of one on ``cuda:0``).
+    The cache is guarded by a lock, so threads may call this side by
+    side."""
     tdt = torch_dtype(dtype)
-    dev = torch.device(device)
+    dev = _exact_device(torch.device(device))
     if isinstance(A, _PreparedA):
-        if A.dev.dtype == tdt and A.dev.device.type == dev.type:
+        if A.dev.dtype == tdt and A.dev.device == dev:
             return A
         A = A.A
     np_dt = _np_dtype(tdt)
     key = (id(A), np.dtype(np_dt).str, str(dev))
-    hit = _A_CACHE.get(key)
-    if hit is not None and hit.A is A:
-        _A_CACHE.move_to_end(key)
-        return hit
-    arr = np.asarray(A, np_dt)
-    M, N = arr.shape
-    Mp, Np = _bucket(M), _bucket(N)
-    A_p = np.zeros((Mp, Np), np_dt)
-    A_p[:M, :N] = arr
-    prep = _PreparedA(A if isinstance(A, np.ndarray) else arr,
-                      M, N, Mp, Np, _put(A_p, dev), A_p)
-    _A_CACHE[key] = prep
-    while len(_A_CACHE) > _A_CACHE_MAX:
-        _A_CACHE.popitem(last=False)
-    return prep
+    with _A_CACHE_LOCK:
+        hit = _A_CACHE.get(key)
+        if hit is not None and hit.A is A:
+            _A_CACHE.move_to_end(key)
+            return hit
+        arr = np.asarray(A, np_dt)
+        M, N = arr.shape
+        Mp, Np = _bucket(M), _bucket(N)
+        A_p = np.zeros((Mp, Np), np_dt)
+        A_p[:M, :N] = arr
+        prep = _PreparedA(A if isinstance(A, np.ndarray) else arr,
+                          M, N, Mp, Np, _put(A_p, dev), A_p)
+        _A_CACHE[key] = prep
+        while len(_A_CACHE) > _A_CACHE_MAX:
+            _A_CACHE.popitem(last=False)
+        return prep
 
 
 def _bucket_batch(B: int, Mp: int) -> int:
@@ -745,8 +803,10 @@ def _auto_chunk(M: int, N: int, itemsize: int) -> int:
 
 
 def _to_result(out, B, M, N) -> LPResult:
+    """The first B LPs of a padded solve's output tuple (tensors, or the
+    numpy arrays of a sharded solve) as an LPResult."""
     (status, obj, x, s, row_dual, col_dual, iters, basis, at_upper) = (
-        o.cpu().numpy() for o in out)
+        o.cpu().numpy() if torch.is_tensor(o) else o for o in out)
     return LPResult(status[:B], obj[:B], x[:B, :N], s[:B, :M],
                     row_dual[:B, :M], col_dual[:B, :N], iters[:B],
                     basis[:B].astype(np.int32), at_upper[:B])
@@ -766,18 +826,19 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
     numbering: rows then columns) or a tuple (basis, at_upper), with
     (B, M) / (B, NT) per-instance forms.
     ``max_chunk``: batches larger than this are solved in chunks.
-    ``device``: the torch device every LP tensor lives on."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device LP sharding is not ported to "
-            "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
+    ``device``: the torch device every LP tensor lives on.
+    ``mesh``: a ``parallel.mesh.Mesh`` (Options.mesh_axes): every chunk's
+    padded batch, grown until the "dp" axis divides it, is solved in
+    contiguous shards over the dp entries (parallel/mesh.py), in place
+    of ``device``; per-instance matrices shard over the mesh's first
+    axis."""
     dev = resolve_device(device)
     if not isinstance(A, _PreparedA) and np.ndim(A) == 3:
         # ahead of _prepare_A: its identity cache is for shared matrices
         return _solve_batch_3d(np.asarray(A), c, row_lb, row_ub, col_lb,
                                col_ub, max_iter=max_iter, dtype=dtype,
                                start_basis=start_basis,
-                               max_chunk=max_chunk, device=dev)
+                               max_chunk=max_chunk, device=dev, mesh=mesh)
     prep = _prepare_A(A, dtype, dev)
     np_dt = prep.host.dtype
     if max_chunk is None:
@@ -794,11 +855,17 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 np.asarray(col_lb)[sl], np.asarray(col_ub)[sl],
                 max_iter=max_iter, dtype=dtype,
                 start_basis=_slice_warm(start_basis, sl),
-                max_chunk=chunk, device=dev))
+                max_chunk=chunk, device=dev, mesh=mesh))
         return concat_results(parts)
     M, N, Mp, Np = prep.M, prep.N, prep.Mp, prep.Np
     B = c2.shape[0]
     Bp = _bucket_batch(B, Mp)
+    entries = None
+    if mesh is not None:
+        from bensolve_tpu_torch.parallel import mesh as pmesh
+
+        entries = pmesh.shard_entries(mesh, "dp")
+        Bp = pmesh.padded_batch(Bp, len(entries))
     if max_iter is None:
         max_iter = 50 * (Mp + Np) + 500
     full_c, lb, ub = _pad_batch_inputs(prep, c2, row_lb, row_ub,
@@ -806,23 +873,50 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
     b0 = u0 = None
     if start_basis is not None:
         b0, u0 = _pad_warm(start_basis, Mp, Mp + Np, B, Bp)
-        b0, u0 = _put(b0, dev), _put(u0, dev)
-    out = _solve_tableau_segmented(prep.dev, _put(full_c, dev),
-                                   _put(lb, dev), _put(ub, dev), b0, u0,
-                                   max_iter)
+    if entries is None:
+        if b0 is not None:
+            b0, u0 = _put(b0, dev), _put(u0, dev)
+        out = _solve_tableau_segmented(prep.dev, _put(full_c, dev),
+                                       _put(lb, dev), _put(ub, dev), b0, u0,
+                                       max_iter)
+    else:
+        preps = {d: _prepare_A(prep, np_dt, d) for d in dict.fromkeys(entries)}
+        out = pmesh.map_shards(
+            entries, (full_c, lb, ub) + _batched_warm(b0, u0),
+            lambda d, c_t, lb_t, ub_t, b_t, u_t: _solve_tableau_segmented(
+                preps[d].dev, c_t, lb_t, ub_t,
+                *_shard_warm(b0, u0, b_t, u_t, d), max_iter))
     return _to_result(out, B, M, N)
+
+
+def _batched_warm(b0, u0) -> tuple:
+    """The per-instance parts of a padded warm start, for map_shards'
+    batched arrays (a shared (M,) basis or (NT,) pattern is None here)."""
+    per = b0 is not None and b0.ndim == 2
+    return (b0 if per else None,
+            u0 if per and u0.ndim == 2 else None)
+
+
+def _shard_warm(b0, u0, b_t, u_t, dev):
+    """A shard's warm start on ``dev``: its slices of per-instance arrays
+    (b_t, u_t), or the shared ones uploaded whole."""
+    if b0 is None:
+        return None, None
+    return (b_t if b_t is not None else _put(b0, dev),
+            u_t if u_t is not None else _put(u0, dev))
 
 
 def _solve_batch_3d(A, c, row_lb, row_ub, col_lb, col_ub, *,
                     max_iter=None, dtype=np.float64, start_basis=None,
-                    max_chunk=None, device="cuda") -> LPResult:
+                    max_chunk=None, device="cuda", mesh=None) -> LPResult:
     """solve_batch for per-instance constraint matrices A (B, M, N): the
     instance-level data-parallel form (scenario batches, BASELINE.json
     config #5).  Every LP of the batch is a DIFFERENT problem, pivoted
-    in lockstep on ``device``.  Padding and chunking mirror the
-    shared-A path; padding instances replicate instance 0.  Nothing
-    here touches the shared-matrix cache, so threads may call it side
-    by side."""
+    in lockstep on ``device``, or, with ``mesh``, in contiguous shards
+    over the mesh's first axis (the JAX package lays the batch over that
+    axis).  Padding and chunking mirror the shared-A path; padding
+    instances replicate instance 0.  Nothing here touches the
+    shared-matrix cache, so threads may call it side by side."""
     dev = resolve_device(device)
     np_dt = _np_dtype(torch_dtype(dtype))
     A = np.asarray(A, np_dt)
@@ -843,11 +937,17 @@ def _solve_batch_3d(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 np.asarray(row_ub)[sl], np.asarray(col_lb)[sl],
                 np.asarray(col_ub)[sl], max_iter=max_iter, dtype=dtype,
                 start_basis=_slice_warm(start_basis, sl),
-                max_chunk=max_chunk, device=dev))
+                max_chunk=max_chunk, device=dev, mesh=mesh))
         return concat_results(parts)
 
     Mp, Np = _bucket(M), _bucket(N)
     Bp = _bucket_batch(B0, Mp)
+    entries = None
+    if mesh is not None:
+        from bensolve_tpu_torch.parallel import mesh as pmesh
+
+        entries = pmesh.shard_entries(mesh, mesh.axis_names[0])
+        Bp = pmesh.padded_batch(Bp, len(entries))
     if max_iter is None:
         max_iter = 50 * (Mp + Np) + 500
     A_p = np.zeros((Bp, Mp, Np), np_dt)
@@ -861,9 +961,18 @@ def _solve_batch_3d(A, c, row_lb, row_ub, col_lb, col_ub, *,
     b0 = u0 = None
     if start_basis is not None:
         b0, u0 = _pad_warm(start_basis, Mp, Mp + Np, B0, Bp)
-        b0, u0 = _put(b0, dev), _put(u0, dev)
     with _tf32_off():
-        out = _solve_tableau_segmented(
-            _put(A_p, dev), _put(full_c, dev), _put(lb, dev), _put(ub, dev),
-            b0, u0, max_iter)
+        if entries is None:
+            if b0 is not None:
+                b0, u0 = _put(b0, dev), _put(u0, dev)
+            out = _solve_tableau_segmented(
+                _put(A_p, dev), _put(full_c, dev), _put(lb, dev),
+                _put(ub, dev), b0, u0, max_iter)
+        else:
+            out = pmesh.map_shards(
+                entries, (A_p, full_c, lb, ub) + _batched_warm(b0, u0),
+                lambda d, A_t, c_t, lb_t, ub_t, b_t, u_t:
+                _solve_tableau_segmented(A_t, c_t, lb_t, ub_t,
+                                         *_shard_warm(b0, u0, b_t, u_t, d),
+                                         max_iter))
     return _to_result(out, B0, M, N)

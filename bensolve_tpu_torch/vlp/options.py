@@ -90,23 +90,29 @@ class Options:
     profile_dir: str = ""          # write a torch.profiler Chrome trace here
     distributed: bool = False      # shard LP rounds over the processes of
     #   the torch.distributed group (parallel/distributed.py)
-    mesh_axes: tuple = ()          # multi-chip sharding of the LP solves
-    #   over the local device mesh: ("dp",) shards the frontier batch,
-    #   ("tp",) shards the within-LP linear algebra (A columns, pricing
-    #   row, basis-inverse panels — for ex09-scale single LPs),
-    #   ("dp", "tp") both.  Empty: single-device execution.
-    mesh_devices: int | None = None  # cap on devices used by mesh_axes
+    mesh_axes: tuple = ()          # multi-device sharding of the LP solves
+    #   (parallel/mesh.py): ("dp",) shards the frontier batch over the
+    #   mesh's entries, one thread and one CUDA stream each; ("tp",) and
+    #   ("dp", "tp") are accepted, but a "tp" axis splits nothing: every
+    #   LP stays whole on its dp entry.  Empty: single-device execution.
+    mesh_devices: int | None = None  # mesh entries (default: the visible
+    #   devices of ``device``'s type; more entries repeat them)
     device: str = "cuda"           # torch device every LP tensor lives on
     #   (the tests pass "cpu"); solve() raises when it is not available
 
     def build_mesh(self):
-        """Multi-device LP sharding is not ported yet: None when unset,
-        NotImplementedError when ``mesh_axes`` asks for it."""
+        """The mesh for mesh_axes over devices of ``device``'s type
+        (cached; None when unset)."""
         if not self.mesh_axes:
             return None
-        raise NotImplementedError(
-            "mesh_axes: multi-device LP sharding is not ported to "
-            "bensolve_tpu_torch yet (ROADMAP Queue 1, mesh/distributed)")
+        m = getattr(self, "_mesh_cache", None)
+        if m is None:
+            from bensolve_tpu_torch.parallel.mesh import make_mesh
+
+            m = make_mesh(self.mesh_devices, tuple(self.mesh_axes),
+                          self.device)
+            object.__setattr__(self, "_mesh_cache", m)
+        return m
 
     def fmt_file(self) -> str:
         """Format string for files: long unless explicitly short

@@ -20,7 +20,10 @@ Phases, one output line (or block) each:
 4. the main path at float32 (the kernel's route): solve() on example01,
    05, 08 and 10, with the launch counts of both variants reset just
    before and read just after (per example), the kernel's share of the
-   phase wall, and the support-function oracle at 1e-3;
+   phase wall, and the support-function oracle at 1e-3; example10's
+   float32 extreme directions against phase 5's float64 ones (phase 5
+   runs first): the worst angle either way, and the float32 ones farther
+   than F32_DIR_DEG, printed (Queue 3 m);
    then the same on random_vlp(q=2, m=700, n=256), whose LPs no cluster
    holds: the global-memory variant's path, its launches counted alone;
 5. the main path at the default float64 (torch ops) on example10, held
@@ -57,8 +60,10 @@ Phases, one output line (or block) each:
    >= 90% resolved on the device and <= 10% to the host, chunks; ms per
    iteration of the full batch beside the bounds of the work needed and
    of the work done, and its split into the S build, the two Choleskys
-   and the solves; 4 LPs held to scipy/HiGHS (1e-3 relative at float32,
-   1e-6 at float64).  Fails unless every LP ends OPTIMAL and the
+   and the solves; LPs 0-3 held to scipy/HiGHS (1e-3 relative at
+   float32, 1e-6 at float64).  These HiGHS solves run in two worker
+   processes while the rounds go on.  Fails unless every LP ends
+   OPTIMAL and the
    float32 cold round meets the criterion (the warm rounds and float64
    do not meet it in the JAX package either: PERF.md, Findings);
 11. solve() through the interior-point route at float64: example05, 08
@@ -76,8 +81,8 @@ Phases, one output line (or block) each:
    the range equal to the serial solve() on the card within 1e-7 and
    the oracle at 1e-6; the first 64 instances on the card and on the
    CPU with equal LP and round counts and vertex sets within 1e-7; the
-   largest round re-solved at max_chunk 256, 2,048, 16,384 and 65,536
-   with identical status, iters and basis per LP.  Printed: instances/s,
+   largest round re-solved at max_chunk 2,048, 16,384 and 65,536 (256
+   was cut for time) with identical status, iters and basis per LP.  Printed: instances/s,
    LPs/s, LPs, rounds, chunked device solves, the seconds of
    _merged_solve split into host stacking/padding/upload, device solve
    and read-back (synchronised host clock) against the host polytope
@@ -88,7 +93,25 @@ Phases, one output line (or block) each:
    run's vertex set within 1e-7; distributed=True on one process on
    example05 equal to the plain solve, with the oracle at 1e-7;
    profile_dir leaves a Chrome trace that holds CUDA kernel events;
-15. the result lines.
+15. the device mesh (parallel/mesh.py) over MESH_N = 4 entries of
+   cuda:0, each shard on its own thread and CUDA stream (the sharded
+   solves, threads and streams are counted): example10 at float64 with
+   mesh_axes=("dp",) (oracle 1e-4, upper image equal to phase 5's
+   within 1e-6, counts and wall beside phase 5's); example05 at float32
+   (oracle 1e-3; the kernel's launch counts unchanged, since a meshed
+   batch never reaches the kernel; example10 at float32 took 379 s over
+   the mesh, past the time limit); config #5 through solve_many(mesh=)
+   (all OPTIMAL, 740,232 LPs in 15 rounds, every instance with phase
+   13's LP and round counts, 32 instances' vertex sets within 1e-7 of
+   phase 13's, rates beside phase 13's, peak device memory); phase 13's
+   heterogeneous run with the mesh (its groups on entry g % 4, every
+   instance with phase 13's counts and vertex set within 1e-7); a tall
+   random_vlp(q=2, m=25, n=250) over a ("dp", "tp") mesh through the
+   revised simplex, its upper image within 1e-6 of its unsharded run's
+   (cut from phase 8's m=50, n=500, which took 80 s over the mesh); with
+   more than one card, example10 over the cards.  Each check is a gate,
+   counted on the [total] line;
+16. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -101,7 +124,8 @@ those lines.  Without a CUDA device, or without the package beside this
 script, it exits non-zero and prints no result.
 
 ``--only 10 12`` runs just the named phases after phase 1 and prints no
-result lines (for iterating on one phase).
+result lines (for iterating on one phase); ``--only 15`` first makes the
+unsharded runs of phase 13 that the mesh phase holds its own to.
 """
 
 from __future__ import annotations
@@ -138,6 +162,12 @@ IPM_CONFIG = dict(q=5, m=1000, n=2000, seed=7)
 IPM_B = 128
 IPM_MIN = 2000
 IPM_WARM_ROUNDS = {"float32": 3, "float64": 1}
+# LPs of the cold round, and at most this many LPs bound for the host
+# per dtype, held to HiGHS (~18 s each on the host, in HIGHS_WORKERS
+# processes beside the rounds)
+IPM_HIGHS_LPS = 4
+IPM_LOOSE_MAX = 2
+HIGHS_WORKERS = 2
 # the interior-point phase's mid-size VLP: random_vlp(q, m, n), whose P2
 # LP (m+2q+1) x (n+q+1) has M + N >= IPM_VLP_MIN
 IPM_VLP = (2, 150, 300)
@@ -148,12 +178,39 @@ IPM_VLP_MIN = 450
 # seed offsets, tests/test_many.py's, HETERO_N instances of each
 MANY_N = 10_000
 MANY_VLP = dict(q=3, m=10, n=8)
-MANY_CHUNKS = (256, 2048, 16384, 65536)
+# instances held to the serial solve()
+MANY_SERIAL = 32
+# 256 (78.5 s on the largest round on an H100, where the whole script
+# took 1,111 s with it) was cut to keep the script well inside its time
+# limit; 2,048 still splits the round into 75 chunks
+MANY_CHUNKS = (2048, 16384, 65536)
+# config #5's LPs and lockstep rounds, equal in the JAX record and in
+# every unsharded run on an H100
+MANY_LPS, MANY_ROUNDS = 740_232, 15
 HETERO = (((2, 6, 5), 0), ((3, 10, 8), 100), ((2, 4, 9), 200))
 HETERO_N = 200
+# the mesh phase: entries of one card per mesh (each on a stream of its
+# own); its float32 example (example10 over the mesh took 379 s at
+# float32 on an H100, past the script's time limit, so the float32
+# check runs example05) and its tall VLP (phase 8's m=50, n=500 took
+# 80 s over the mesh), cut to keep the script inside its time limit
+MESH_N = 4
+MESH_F32_EXAMPLE = "example05"
+MESH_TALL = (2, 25, 250)
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# angle (degrees) within which an extreme direction found at float32
+# counts as a copy of a float64 one (phase 4 on example10): the CPU's
+# float32 routes list near-copies of the true directions (2.7e-5 to
+# 5.5e-5 deg off), the card's kernel route also directions farther off
+# (ROADMAP Queue 3 m); phase 4 prints them and does not fail on them
+F32_DIR_DEG = 1e-2
+
+
+# results of earlier phases that the mesh phase holds its runs to; a
+# phase run alone (--only) computes what it lacks
+_RESULTS = {}
 
 
 def log(*args):
@@ -332,9 +389,14 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
                     "global": int(kind == "global")}:
         raise AssertionError(f"{name}: launches {launched}, expected one "
                              f"{kind}")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
     st_p, basis_p, atup_p, it_p = gs.solve_batch_group_reference(
         *inputs["a"], group=1)
+    e1.record()
     torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
     if not (ker.status == st_p.cpu().numpy()[:ker.status.size]).all():
         raise AssertionError(f"{name}: kernel status {ker.status} != plain "
                              f"{st_p.cpu().numpy()}")
@@ -382,8 +444,11 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
                  f"kernel's time")
     else:
         out["ms"] = _time_ms(run, reps)
-    out["plain_ms"] = _time_ms(lambda: gs.solve_batch_group_reference(
-        *inputs["a"], group=1), max(1, reps // 4))
+    # the plain version's torch ops need no warm-up: where one call is
+    # enough, it is the call made for the comparison above
+    out["plain_ms"] = (plain_ms if reps < 8 else _time_ms(
+        lambda: gs.solve_batch_group_reference(*inputs["a"], group=1),
+        reps // 4))
     log(f"[kernel] {name}: {kind} C={C} B={B} Mp={W0.shape[0]} "
         f"NT={W0.shape[1]} status equal on {B}/{B} LPs "
         f"({int((ker.status == 1).sum())} optimal); rel err obj "
@@ -658,10 +723,42 @@ def phase_main_f32():
             f"LPs {r.stats.lps} rounds {r.stats.rounds} pivots "
             f"{r.stats.pivots}; support oracle worst gap {gap:.1e} "
             f"(limit 1e-3)")
+    _f32_directions(runs[-1][1])
     if kept_devices != {"cuda"}:
         raise AssertionError(f"kept tableau devices {kept_devices}")
     log(f"[main f32] kept tableau device: {sorted(kept_devices)}")
     return clock.report("main f32", sum(w for _, _, w in runs))
+
+
+def _direction_angles(dirs, ref):
+    """Degrees from each direction to the nearest of ``ref``."""
+    if not len(dirs):
+        return np.zeros(0)
+    u = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    v = ref / np.linalg.norm(ref, axis=1, keepdims=True)
+    return np.degrees(np.arccos(np.clip((u @ v.T).max(axis=1), -1, 1)))
+
+
+def _f32_directions(r):
+    """Prints how example10's extreme directions at float32 lie against
+    the float64 ones (phase 5's run): the angle from each to the nearest
+    float64 direction, those farther than F32_DIR_DEG, and the angle from
+    each float64 direction to the nearest float32 one.  Nothing here
+    fails: the card's list is not only near-copies (ROADMAP Queue 3 m)."""
+    if "main f64" not in _RESULTS:
+        _RESULTS["main f64"] = _solve("example10", _options())
+    ref = _RESULTS["main f64"][0].primal_directions
+    got = r.primal_directions
+    to_ref, from_ref = _direction_angles(got, ref), _direction_angles(ref,
+                                                                      got)
+    far = [f"{np.round(d, 6).tolist()} {a:.3g} deg"
+           for d, a in zip(got, to_ref) if a > F32_DIR_DEG]
+    log(f"[main f32] example10: {len(got)} extreme directions at float32, "
+        f"{len(ref)} at float64; float32 to the nearest float64 one: worst "
+        f"{to_ref.max(initial=0):.3g} deg, {len(far)} farther than "
+        f"{F32_DIR_DEG:g} deg{': ' + '; '.join(far) if far else ''}; "
+        f"float64 to the nearest float32 one: worst "
+        f"{from_ref.max(initial=0):.3g} deg")
 
 
 def phase_large_f32():
@@ -687,6 +784,7 @@ def phase_main_f64():
     """The default float64 path on example10; returns its result."""
     r, wall = _solve("example10", _options())
     _report("main f64", "example10", r, wall, 1e-4)
+    _RESULTS["main f64"] = (r, wall)
     return r
 
 
@@ -838,6 +936,12 @@ def _highs_one(A, ci, rlb, rub, clb, cub):
                    bounds=list(zip(clb, cub)), method="highs")
 
 
+def _highs_timed(*args):
+    """_highs_one(*args) and its seconds (in a worker process)."""
+    t0 = time.perf_counter()
+    return _highs_one(*args), time.perf_counter() - t0
+
+
 def _ipm_p2_template(dtype):
     """bench.py::make_p2_instances through the port: the P2 template of
     BASELINE config #4 with ipm_min=2000, and B synthetic frontier
@@ -953,30 +1057,43 @@ def phase_ipm_config4():
     port's interior-point route, at float32 and float64, with the host
     HiGHS fallback capped at 0 LPs: each LP the reference would hand to
     it (ITLIM, or OPTIMAL at quality 1 or 2) is counted and keeps the
-    device's answer, and up to two of them per dtype are held to HiGHS."""
-    import os
+    device's answer, and up to IPM_LOOSE_MAX of them per dtype are held
+    to HiGHS.  The HiGHS solves run in HIGHS_WORKERS processes of their
+    own while the rounds go on."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     saved = os.environ.get("BENSOLVE_HOST_FALLBACK_MAX")
     os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = "0"
     try:
-        highs = None
-        for dtype in ("float32", "float64"):
-            highs = _ipm_rounds(dtype, highs)
+        with ProcessPoolExecutor(
+                HIGHS_WORKERS,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            highs = None
+            for dtype in ("float32", "float64"):
+                highs = _ipm_rounds(dtype, highs, pool)
     finally:
         os.environ.pop("BENSOLVE_HOST_FALLBACK_MAX", None)
         if saved is not None:
             os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = saved
 
 
-def _ipm_rounds(dtype, highs):
+def _ipm_rounds(dtype, highs, pool):
     """One dtype of phase 10: the cold solve and IPM_WARM_ROUNDS[dtype]
     warm rounds (each started from the template's carried interior
-    point, as in the JAX package), then LPs 0-3 of the cold round and up to two LPs bound
-    for the host against HiGHS (LPs 0-3 solved once, ``highs``)."""
+    point, as in the JAX package), then the first IPM_HIGHS_LPS LPs of
+    the cold round and up to IPM_LOOSE_MAX LPs bound for the host against
+    HiGHS.  The HiGHS solves go to ``pool`` as soon as their inputs are
+    known; the cold round's are submitted once (``highs``: their
+    futures) and serve both dtypes."""
     from bensolve_tpu_torch.lp import ipm, simplex
 
     t2, extra_ub = _ipm_p2_template(dtype)
     M, N = t2.A_lp.shape
+    if highs is None:
+        obj, rlb, rub, clb, cub = t2.build_inputs(extra_ub)
+        highs = [pool.submit(_highs_timed, t2.A_lp, obj[i], rlb[i], rub[i],
+                             clb[i], cub[i]) for i in range(IPM_HIGHS_LPS)]
     if dtype == "float32":
         log(f"[ipm] config #4: random_vlp({IPM_CONFIG}) P2 LP {M}x{N}, "
             f"B={IPM_B}, ipm_min={IPM_MIN}; host HiGHS fallback capped at "
@@ -1061,35 +1178,37 @@ def _ipm_rounds(dtype, highs):
             raise AssertionError(f"config #4 {dtype}: {last['chunks']} "
                                  f"chunks, expected {want}")
         bound = host[res.status[host] == simplex.OPTIMAL]
-        loose += [(name, i, ub, res) for i in bound[:2 - len(loose)]]
-    # 4 LPs of the cold round and up to 2 loose LPs against scipy/HiGHS
-    obj, rlb, rub, clb, cub = t2.build_inputs(extra_ub)
-    if highs is None:
-        t0 = time.perf_counter()
-        highs = ([_highs_one(t2.A_lp, obj[i], rlb[i], rub[i], clb[i],
-                             cub[i]) for i in range(4)],
-                 (time.perf_counter() - t0) / 4)
+        for i in bound[:IPM_LOOSE_MAX - len(loose)]:
+            obj, rlb, rub, clb, cub = t2.build_inputs(ub[i:i + 1])
+            loose.append((name, i, res, pool.submit(
+                _highs_timed, t2.A_lp, obj[0], rlb[0], rub[0], clb[0],
+                cub[0])))
+    # the first LPs of the cold round and the loose LPs against HiGHS
+    t0 = time.perf_counter()
+    done = [f.result() for f in highs]
     tol = 1e-3 if dtype == "float32" else 1e-6
     errs = []
-    for i, h in enumerate(highs[0]):
+    for i, (h, _) in enumerate(done):
         if h.status != 0:
             raise AssertionError(f"HiGHS LP {i}: {h.message}")
         errs.append(abs(cold.obj[i] - h.fun) / (1 + abs(h.fun)))
     if not max(errs) <= tol:
         raise AssertionError(f"config #4 {dtype}: obj differs from HiGHS "
                              f"by {max(errs):.2e} > {tol}")
-    log(f"[ipm] {dtype}: cold objectives of LPs 0-3 within "
+    log(f"[ipm] {dtype}: cold objectives of LPs 0-{IPM_HIGHS_LPS - 1} within "
         f"{max(errs):.1e} of scipy/HiGHS relative (limit {tol:g}; "
-        f"HiGHS {highs[1]:.2f} s per LP on the host)")
-    for name, i, ub, res in loose:
-        obj, rlb, rub, clb, cub = t2.build_inputs(ub[i:i + 1])
-        h = _highs_one(t2.A_lp, obj[0], rlb[0], rub[0], clb[0], cub[0])
+        f"HiGHS {np.mean([t for _, t in done]):.2f} s per LP in its "
+        f"process)")
+    for name, i, res, fut in loose:
+        h, _ = fut.result()
         if h.status != 0:
             raise AssertionError(f"HiGHS LP {i}: {h.message}")
         log(f"[ipm] {dtype} {name}: LP {i} (quality {int(res.quality[i])}"
             f", bound for the host) objective within "
             f"{abs(res.obj[i] - h.fun) / (1 + abs(h.fun)):.1e} of "
             f"scipy/HiGHS relative")
+    log(f"[ipm] {dtype}: {time.perf_counter() - t0:.2f} s waited for the "
+        f"HiGHS processes after the rounds")
     return highs
 
 
@@ -1290,6 +1409,7 @@ def phase_many():
                              f"OPTIMAL (first {bad[0]}: {rs[bad[0]].status})")
     lps = sum(r.stats.lps for r in rs)
     rounds = max(r.stats.rounds for r in rs)
+    _RESULTS["many"] = (vlps, rs, wall)
     sec = clock.seconds
     stack = sec["merged"] - sec["device"] - sec["readback"]
     setup = wall - sum(sec[k] for k in ("merged", "gather", "apply",
@@ -1313,8 +1433,9 @@ def phase_many():
         f"{1 - sec['device'] / wall:.3f}")
     _many_chunk_comparison(clock)
 
-    # 32 instances spread over the range against the serial solve()
-    picks = sorted({int(i) for i in np.linspace(0, n_inst - 1, 32)})
+    # instances spread over the range against the serial solve()
+    picks = sorted({int(i) for i in np.linspace(0, n_inst - 1,
+                                                MANY_SERIAL)})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     worst, gap = 0.0, 0.0
@@ -1348,15 +1469,19 @@ def phase_many():
     _many_heterogeneous(opt)
 
 
+def _hetero_vlps():
+    from bensolve_tpu_torch import examples
+
+    return [examples.random_vlp(q=q, m=m, n=n, seed=off + s)
+            for s in range(HETERO_N) for (q, m, n), off in HETERO]
+
+
 def _many_heterogeneous(opt):
     """Three shapes through the per-group threads of _run_groups_ep."""
-    from bensolve_tpu_torch import examples, solve
+    from bensolve_tpu_torch import solve
     from bensolve_tpu_torch.algs import many
 
-    vlps = []
-    for s in range(HETERO_N):
-        for (q, m, n), off in HETERO:
-            vlps.append(examples.random_vlp(q=q, m=m, n=n, seed=off + s))
+    vlps = _hetero_vlps()
     calls = []
     real = many._run_groups_ep
 
@@ -1377,6 +1502,7 @@ def _many_heterogeneous(opt):
         raise AssertionError(f"many: _run_groups_ep saw groups {calls}")
     if any(r.status.name != "OPTIMAL" for r in rs):
         raise AssertionError("many heterogeneous: not all OPTIMAL")
+    _RESULTS["hetero"] = (vlps, rs, wall)
     worst = 0.0
     for i in (0, 1, 2, len(vlps) - 3, len(vlps) - 2, len(vlps) - 1):
         worst = max(worst, _point_sets_equal(
@@ -1448,6 +1574,248 @@ def _solve_resume(name, opt, path):
     return r, time.perf_counter() - t0
 
 
+class _Gates:
+    """Counts the checks a phase passed; a failed check raises."""
+
+    def __init__(self, tag):
+        self.tag, self.passed = tag, 0
+
+    def __call__(self, ok, what):
+        if not ok:
+            raise AssertionError(f"{self.tag}: {what}")
+        self.passed += 1
+
+
+class _ShardWatch:
+    """Counts the sharded solves of parallel/mesh.py (map_shards calls)
+    and their shards, and the most distinct threads and CUDA streams
+    that ran the shards of one solve."""
+
+    def __init__(self):
+        from bensolve_tpu_torch.parallel import mesh as pmesh
+
+        self.pmesh, self.real = pmesh, pmesh.map_shards
+        self.calls = self.shards = self.threads = self.streams = 0
+
+    def __enter__(self):
+        import threading
+
+        def watched(entries, batched, solve):
+            self.calls += 1
+            self.shards += len(entries)
+            threads, streams = set(), set()
+
+            def seen(dev, *ts):
+                threads.add(threading.get_ident())
+                if dev.type == "cuda":
+                    streams.add(torch.cuda.current_stream(dev).cuda_stream)
+                return solve(dev, *ts)
+            out = self.real(entries, batched, seen)
+            self.threads = max(self.threads, len(threads))
+            self.streams = max(self.streams, len(streams))
+            return out
+
+        self.pmesh.map_shards = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.pmesh.map_shards = self.real
+
+    def line(self):
+        return (f"{self.calls} sharded solves of {self.shards} shards, up "
+                f"to {self.threads} threads and {self.streams} CUDA streams "
+                f"per solve")
+
+
+def _mesh_example(gate, name, dtype_kw, ref, tol, tag, n_devices):
+    """An example over a "dp" mesh; held to the oracle and, with ``ref``
+    (result, wall), to that unsharded run's upper image."""
+    with _ShardWatch() as watch:
+        r, wall = _solve(name, _options(
+            mesh_axes=("dp",), mesh_devices=n_devices, **dtype_kw))
+    gate(r.status.name == "OPTIMAL", f"{tag}: status {r.status}")
+    gate(watch.calls > 0, f"{tag}: no sharded solve ran")
+    gap = check_support(r, tol)
+    line = (f"[mesh] {tag}: OPTIMAL in {wall:.2f} s, LPs {r.stats.lps} "
+            f"rounds {r.stats.rounds}, {watch.line()}; support oracle worst "
+            f"gap {gap:.1e} (limit {tol:g})")
+    if ref is not None:
+        r0, wall0 = ref
+        img = _images_close(r, r0, 1e-6)
+        gate(img <= 1e-6, f"{tag}: upper image")
+        dist, n_apart = _set_distance(r.primal_points, r0.primal_points)
+        line += (f"; unsharded: {wall0:.2f} s, LPs "
+                 f"{r0.stats.lps} rounds {r0.stats.rounds}; upper images "
+                 f"within {img:.1e} (4096 weights, limit 1e-6), vertex "
+                 f"lists {len(r.primal_points)} and {len(r0.primal_points)} "
+                 f"points, {n_apart} farther than 1e-6 (worst {dist:.1e})")
+    log(line)
+    return r
+
+
+def _many_against(gate, tag, rs, rs0, picks):
+    """Gates: every instance with the unsharded run's LP and round counts
+    (the 3-D pivot is per LP, so a shard pivots as the whole batch does),
+    and each picked instance's vertex set within 1e-7 of the unsharded
+    one.  Returns the worst distance of the picked vertex sets."""
+    apart = [i for i, (a, b) in enumerate(zip(rs, rs0))
+             if (a.stats.lps, a.stats.rounds)
+             != (b.stats.lps, b.stats.rounds)]
+    gate(not apart, f"{tag}: {len(apart)} instances with LP or round "
+         f"counts other than the unsharded run's (first {apart[:5]})")
+    worst = 0.0
+    for i in picks:
+        d = _point_sets_equal(rs[i], rs0[i], 1e-7, f"{tag} instance {i}")
+        gate(d <= 1e-7, f"{tag} instance {i}: vertex set")
+        worst = max(worst, d)
+    return worst
+
+
+def phase_mesh():
+    """The device mesh (parallel/mesh.py) on the card: MESH_N entries of
+    cuda:0, each shard on its own thread and CUDA stream."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.algs import many
+    from bensolve_tpu_torch.lp import group_simplex as gs
+    from bensolve_tpu_torch.lp import revised
+    from bensolve_tpu_torch.parallel.mesh import make_mesh
+    from bensolve_tpu_torch.vlp.options import Options
+
+    gate = _Gates("mesh")
+    mesh = make_mesh(MESH_N, ("dp",), device="cuda")
+    log(f"[mesh] make_mesh({MESH_N}, ('dp',)): entries "
+        f"{[str(d) for d in mesh.devices.flat]}; "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}")
+
+    # example10 at float64 against phase 5's run, and MESH_F32_EXAMPLE
+    # at float32, whose batches the kernel takes without a mesh (phase 4)
+    if "main f64" not in _RESULTS:
+        _RESULTS["main f64"] = _solve("example10", _options())
+    ref = _RESULTS["main f64"]
+    _mesh_example(gate, "example10", {}, ref, 1e-4,
+                  f"example10 float64 dp x{MESH_N}", MESH_N)
+    before = _launches()
+    _mesh_example(gate, MESH_F32_EXAMPLE, F32_KW, None, 1e-3,
+                  f"{MESH_F32_EXAMPLE} float32 dp x{MESH_N}", MESH_N)
+    after = _launches()
+    gate(after == before, f"a meshed float32 batch reached the kernel: "
+         f"launches {before} -> {after}")
+    log(f"[mesh] {MESH_F32_EXAMPLE} float32: kernel launches cluster/global "
+        f"{before['cluster']}/{before['global']} before and "
+        f"{after['cluster']}/{after['global']} after (a meshed batch takes "
+        f"the tableau route, as in the JAX package)")
+
+    # config #5 through solve_many over the mesh
+    if "many" not in _RESULTS:
+        vlps = [examples.random_vlp(**MANY_VLP, seed=s)
+                for s in range(MANY_N)]
+        opt = Options(bounded=True, write_files=False, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs0 = many.solve_many(vlps, opt)
+        torch.cuda.synchronize()
+        _RESULTS["many"] = (vlps, rs0, time.perf_counter() - t0)
+    vlps, rs0, wall0 = _RESULTS["many"]
+    opt = Options(bounded=True, write_files=False, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _ShardWatch() as watch:
+        t0 = time.perf_counter()
+        rs = many.solve_many(vlps, opt, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gate(all(r.status.name == "OPTIMAL" for r in rs),
+         "config #5: not every instance OPTIMAL")
+    gate(watch.calls > 0, "config #5: no sharded solve ran")
+    lps, lps0 = (sum(r.stats.lps for r in x) for x in (rs, rs0))
+    rounds, rounds0 = (max(r.stats.rounds for r in x) for x in (rs, rs0))
+    pts, pts0 = (sum(len(r.primal_points) for r in x) for x in (rs, rs0))
+    gate((lps, rounds) == (MANY_LPS, MANY_ROUNDS),
+         f"config #5: {lps} LPs in {rounds} rounds, recorded {MANY_LPS} in "
+         f"{MANY_ROUNDS}")
+    gate(pts == pts0, f"config #5: {pts} points, unsharded {pts0}")
+    picks = sorted({int(i) for i in np.linspace(0, MANY_N - 1, 32)})
+    dist = _many_against(gate, "config #5", rs, rs0, picks)
+    log(f"[mesh] config #5 over the mesh: {MANY_N} instances all OPTIMAL in "
+        f"{wall:.2f} s = {MANY_N / wall:.1f} instances/s, {lps / wall:.0f} "
+        f"LPs/s (unsharded: {wall0:.2f} s, {MANY_N / wall0:.1f} "
+        f"instances/s, {lps0 / wall0:.0f} LPs/s); {lps} LPs, {rounds} "
+        f"rounds, {pts} points (unsharded {lps0}, {rounds0}, {pts0}; "
+        f"recorded {MANY_LPS}, {MANY_ROUNDS}); all {MANY_N} instances with "
+        f"the unsharded LP and round counts; {len(picks)} instances' vertex "
+        f"sets within {dist:.1e} of the unsharded ones (limit 1e-7); "
+        f"{watch.line()}; peak torch.cuda.max_memory_allocated "
+        f"{peak / 2**20:.0f} MiB")
+
+    # the heterogeneous run: groups round-robin over the entries
+    if "hetero" not in _RESULTS:
+        hv = _hetero_vlps()
+        _RESULTS["hetero"] = (hv, many.solve_many(hv, opt), None)
+    hv, hrs0, _ = _RESULTS["hetero"]
+    places = []
+    real = many._merged_solve
+
+    def watched(requests, o, place=None):
+        places.append(place)
+        return real(requests, o, place)
+
+    many._merged_solve = watched
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hrs = many.solve_many(hv, opt, mesh=mesh)
+        torch.cuda.synchronize()
+        hwall = time.perf_counter() - t0
+    finally:
+        many._merged_solve = real
+    gate(all(r.status.name == "OPTIMAL" for r in hrs),
+         "heterogeneous: not every instance OPTIMAL")
+    want = {str(d) for d in list(mesh.devices.flat)[:len(HETERO)]}
+    gate(bool(places) and {str(p) for p in places} == want,
+         f"heterogeneous: groups placed on {set(map(str, places))}")
+    dist = _many_against(gate, "heterogeneous", hrs, hrs0, range(len(hv)))
+    log(f"[mesh] heterogeneous: {len(HETERO)} shapes x {HETERO_N} instances, "
+        f"group g on entry g % {MESH_N} ({len(places)} merged solves), all "
+        f"OPTIMAL in {hwall:.2f} s; every instance with the unsharded LP "
+        f"and round counts and its vertex set within {dist:.1e} of the "
+        f"unsharded one (limit 1e-7)")
+
+    # a tall VLP through the revised simplex over a ("dp", "tp") mesh,
+    # against its unsharded run
+    q, m, n = MESH_TALL
+    r0, twall0 = _solve(None, _options(),
+                        vlp=examples.random_vlp(q=q, m=m, n=n))
+    calls = revised.CALLS
+    with _ShardWatch() as watch:
+        r, twall = _solve(None, _options(mesh_axes=("dp", "tp"),
+                                         mesh_devices=MESH_N),
+                          vlp=examples.random_vlp(q=q, m=m, n=n))
+    gate(r.status.name == "OPTIMAL", f"tall: status {r.status}")
+    gate(revised.CALLS > calls, "tall: the revised simplex did not run")
+    gate(watch.calls > 0, "tall: no sharded solve ran")
+    img = _images_close(r, r0, 1e-6)
+    gap = check_support(r, 1e-4)
+    shape = make_mesh(MESH_N, ("dp", "tp"), device="cuda").shape
+    log(f"[mesh] random_vlp(q={q}, m={m}, n={n}) float64 primal over "
+        f"make_mesh({MESH_N}, ('dp', 'tp')) {shape}: OPTIMAL in "
+        f"{twall:.2f} s (unsharded: {twall0:.2f} s), "
+        f"{revised.CALLS - calls} revised batched solves, {watch.line()}; "
+        f"LPs {r.stats.lps} rounds {r.stats.rounds} (unsharded: "
+        f"{r0.stats.lps} / {r0.stats.rounds}); upper images within "
+        f"{img:.1e} (limit 1e-6); support oracle worst gap {gap:.1e} "
+        f"(limit 1e-4)")
+
+    if torch.cuda.device_count() > 1:
+        k = torch.cuda.device_count()
+        _mesh_example(gate, "example10", {}, ref, 1e-4,
+                      f"example10 float64 over the {k} cards", None)
+    else:
+        log("[mesh] one card: the run over several cards was not made")
+    log(f"[mesh] {gate.passed} gates passed")
+    return gate.passed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1461,24 +1829,26 @@ def main() -> int:
     only = _only(sys.argv[1:])
     if only is not None:
         for k in only:
-            PHASES[k]()
-        log(f"[total] {time.perf_counter() - t_start:.0f} s")
+            _timed(k, PHASES[k])
+        _log_total(t_start)
         return 0
-    phase_build()
-    ex10, ex10_w, glob = phase_kernel()
-    launches = phase_main_f32()
-    launches_large = phase_large_f32()
-    primal = phase_main_f64()
-    phase_dual_f64(primal)
-    launches_dual = phase_dual_f32()
-    phase_tall()
-    phase_revised_vs_cpu()
-    phase_ipm_config4()
-    phase_ipm_e2e()
-    phase_ipm_vs_cpu()
-    phase_many()
-    phase_aux()
-    log(f"[total] {time.perf_counter() - t_start:.0f} s")
+    _timed("2", phase_build)
+    ex10, ex10_w, glob = _timed("3", phase_kernel)
+    # phase 5 first: phase 4 holds its float32 directions to its run
+    primal = _timed("5", phase_main_f64)
+    launches = _timed("4", phase_main_f32)
+    launches_large = _timed("4 large", phase_large_f32)
+    _timed("6", phase_dual_f64, primal)
+    launches_dual = _timed("7", phase_dual_f32)
+    _timed("8", phase_tall)
+    _timed("9", phase_revised_vs_cpu)
+    _timed("10", phase_ipm_config4)
+    _timed("11", phase_ipm_e2e)
+    _timed("12", phase_ipm_vs_cpu)
+    _timed("13", phase_many)
+    _timed("14", phase_aux)
+    _timed("15", phase_mesh)
+    _log_total(t_start)
     log(smi_line())
     common = {"route": "cuda", "source": KERNEL_SOURCE,
               "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
@@ -1506,7 +1876,26 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
           "5": phase_main_f64, "7": phase_dual_f32, "8": phase_tall,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,
-          "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux}
+          "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
+          "15": phase_mesh}
+# seconds per phase, and the mesh phase's passed gates, for [total]
+_PHASE_S = {}
+
+
+def _timed(key, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _PHASE_S[key] = time.perf_counter() - t0
+    if key == "15":
+        _PHASE_S["mesh gates"] = out
+    return out
+
+
+def _log_total(t_start):
+    gates = _PHASE_S.pop("mesh gates", None)
+    per = ", ".join(f"{k} {v:.0f} s" for k, v in _PHASE_S.items())
+    log(f"[total] {time.perf_counter() - t_start:.0f} s (phases: {per})"
+        + ("" if gates is None else f"; mesh phase gates passed {gates}"))
 
 
 def _only(argv):

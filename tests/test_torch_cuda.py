@@ -5,7 +5,8 @@ simplex and the interior-point method give on the card what they give on
 the CPU, with TF32 off; lp_ipm_min takes a float32 solve past the
 kernel's route to the interior-point method; a per-instance-matrix LP
 batch and a 64-instance solve_many give on the card what they give on
-the CPU.
+the CPU; a "dp" mesh of streams on the card (and over the cards, where
+there are several) gives the one-device result.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -330,3 +331,52 @@ def test_solve_many_matches_cpu(cuda_device):
         pb = np.array(sorted(map(tuple, b.primal_points)))
         assert pa.shape == pb.shape
         np.testing.assert_allclose(pa, pb, rtol=0, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_dp_mesh_on_card_matches_one_device(cuda_device):
+    """A "dp" mesh of four entries cuda:0 (four streams on one card), and
+    where there are several cards a mesh over them: per LP the same
+    status, pivots and basis as the one-device solve, at float64."""
+    from bensolve_tpu_torch.lp import simplex as sx
+    from bensolve_tpu_torch.parallel.mesh import make_mesh
+
+    args = tuple(a.astype(np.float64) for a in make(16, 16, 64, 0))
+    one = sx.solve_batch(*args, device=cuda_device)
+    assert (one.status == OPTIMAL).sum() > 32
+    meshes = [make_mesh(4, device="cuda")]
+    assert [str(d) for d in meshes[0].devices.flat] == (
+        ["cuda:0"] * 4 if torch.cuda.device_count() == 1
+        else [f"cuda:{i % torch.cuda.device_count()}" for i in range(4)])
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh(device="cuda"))
+    for mesh in meshes:
+        got = sx.solve_batch(*args, device=cuda_device, mesh=mesh)
+        np.testing.assert_array_equal(got.status, one.status)
+        np.testing.assert_array_equal(got.iters, one.iters)
+        np.testing.assert_array_equal(got.basis, one.basis)
+        np.testing.assert_allclose(got.obj, one.obj, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_solve_many_mesh_on_card_matches_unsharded(cuda_device):
+    """64 instances of config #5's shape over a four-entry mesh: every
+    status OPTIMAL, the unsharded run's LP and round counts per instance
+    (the 3-D pivot is per LP), and every upper image (its support
+    function at 256 weights inside the dual cone) within 1e-7 of the
+    unsharded run's."""
+    from bensolve_tpu_torch.algs.many import solve_many
+    from bensolve_tpu_torch.parallel.mesh import make_mesh
+
+    vlps = [examples.random_vlp(q=3, m=10, n=8, seed=s) for s in range(64)]
+    opt = Options(bounded=True, write_files=False, device="cuda")
+    plain = solve_many(vlps, opt)
+    got = solve_many(vlps, opt, mesh=make_mesh(4, device="cuda"))
+    rng = np.random.default_rng(0)
+    for a, b in zip(plain, got):
+        assert a.status.name == b.status.name == "OPTIMAL"
+        assert (a.stats.lps, a.stats.rounds) == (b.stats.lps, b.stats.rounds)
+        W = a.sol.Z @ (rng.random((a.sol.p, 256)) + 1e-3)
+        W /= np.abs(W).sum(axis=0)
+        ha, hb = (a.primal_points @ W).min(0), (b.primal_points @ W).min(0)
+        assert (np.abs(ha - hb) / (1 + np.abs(ha))).max() <= 1e-7

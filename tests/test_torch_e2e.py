@@ -200,13 +200,6 @@ def test_cuda_device_without_card_raises(monkeypatch):
         bt.solve(vlp, bt.Options(write_files=False, device="cuda"))
 
 
-@pytest.mark.parametrize("opt", [dict(mesh_axes=("dp",))])
-def test_unported_options_raise(opt):
-    vlp = problem_from_reference(examples.example01())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bt.solve(vlp, bt.Options(write_files=False, device="cpu", **opt))
-
-
 @pytest.mark.parametrize("name", EXAMPLES)
 def test_ipm_route_f64_parity(name):
     """lp_ipm_min=1: every LP of the run goes to the interior-point

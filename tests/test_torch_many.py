@@ -301,13 +301,6 @@ def test_solve_many_infeasible_instance():
         assert_same_solution(ref[i], got[i])
 
 
-def test_solve_many_mesh_raises():
-    vlps = problems_from_reference(random_bounded_vlps(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmany.solve_many(vlps, bt.Options(device="cpu", bounded=True),
-                         mesh=object())
-
-
 def test_solve_many_cuda_device_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     vlps = problems_from_reference(random_bounded_vlps(2))

@@ -34,6 +34,7 @@ def test_import_leaves_jax_out():
             "bensolve_tpu_torch.lp.dual_simplex, bensolve_tpu_torch.convert, "
             "bensolve_tpu_torch.algs.many, "
             "bensolve_tpu_torch.parallel.distributed, "
+            "bensolve_tpu_torch.parallel.mesh, "
             "bensolve_tpu_torch.io.checkpoint, bensolve_tpu_torch.io.plot, "
             "bensolve_tpu_torch.vlp.writer; "
             "bad = sorted(m for m in sys.modules "

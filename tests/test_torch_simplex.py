@@ -154,17 +154,11 @@ def test_cuda_device_without_card_raises(monkeypatch):
         tsx.solve_batch(*random_batch(0), device="cuda")
 
 
-def test_three_d_and_mesh_not_ported():
-    """The mesh is not ported; a 3-D A broadcast from one matrix now
-    solves, to the shared-matrix path's results."""
+def test_three_d_broadcast_matches_shared():
+    """A 3-D A broadcast from one matrix solves to the shared-matrix
+    path's results."""
     A, c, rlb, rub, clb, cub = random_batch(0)
     A3 = np.broadcast_to(A, (c.shape[0],) + A.shape)
     got = tsx.solve_batch(A3, c, rlb, rub, clb, cub, device="cpu")
     shared = tsx.solve_batch(A, c, rlb, rub, clb, cub, device="cpu")
     assert_parity(shared, got, np.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsx.solve_batch(A, c, rlb, rub, clb, cub, device="cpu",
-                        mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsx.solve_batch(A3, c, rlb, rub, clb, cub, device="cpu",
-                        mesh=object())
