@@ -16,14 +16,18 @@ Phases, one output line (or block) each:
    shape (Mp=384, NT=768, B=256), where the cluster and the global
    variant are also timed in turns on the same inputs (CUDA events) and
    the roofline bound is computed from the cluster kernel's own counts
-   of pricing passes and rank-1 updates;
+   of pricing passes and rank-1 updates on the LP's unpadded tableau
+   (M rows, N + M columns); the same at the bench's device
+   shape (one launch: the first 256 of bench.make_instances(96, 96,
+   4096), Mp=96, NT=256, C=1);
 4. the main path at float32 (the kernel's route): solve() on example01,
    05, 08 and 10, with the launch counts of both variants reset just
    before and read just after (per example), the kernel's share of the
    phase wall, and the support-function oracle at 1e-3; example10's
    float32 extreme directions against phase 5's float64 ones (phase 5
    runs first): the worst angle either way, and the float32 ones farther
-   than F32_DIR_DEG, printed (Queue 3 m);
+   than F32_DIR_DEG, printed, and every float32 direction in the cone of
+   the float64 ones (NNLS residual at most 1e-4; ROADMAP Queue 3 m);
    then the same on random_vlp(q=2, m=700, n=256), whose LPs no cluster
    holds: the global-memory variant's path, its launches counted alone;
 5. the main path at the default float64 (torch ops) on example10, held
@@ -95,9 +99,10 @@ Phases, one output line (or block) each:
    profile_dir leaves a Chrome trace that holds CUDA kernel events;
 15. the device mesh (parallel/mesh.py) over MESH_N = 4 entries of
    cuda:0, each shard on its own thread and CUDA stream (the sharded
-   solves, threads and streams are counted): example10 at float64 with
-   mesh_axes=("dp",) (oracle 1e-4, upper image equal to phase 5's
-   within 1e-6, counts and wall beside phase 5's); example05 at float32
+   solves, threads and streams are counted): example05 at float64 with
+   mesh_axes=("dp",) (oracle 1e-4, upper image equal to its unsharded
+   run's within 1e-6, counts and wall beside it; example10 took 132-218
+   s over the mesh); example05 at float32
    (oracle 1e-3; the kernel's launch counts unchanged, since a meshed
    batch never reaches the kernel; example10 at float32 took 379 s over
    the mesh, past the time limit); config #5 through solve_many(mesh=)
@@ -109,18 +114,26 @@ Phases, one output line (or block) each:
    random_vlp(q=2, m=25, n=250) over a ("dp", "tp") mesh through the
    revised simplex, its upper image within 1e-6 of its unsharded run's
    (cut from phase 8's m=50, n=500, which took 80 s over the mesh); with
-   more than one card, example10 over the cards.  Each check is a gate,
+   more than one card, example05 over the cards.  Each check is a gate,
    counted on the [total] line;
-16. the result lines.
+16. the port's bench (python -m bensolve_tpu_torch.bench) in a process
+   of its own with every stage, at reduced depth where a stage repeats
+   an earlier phase (BENCH_ARGS: p2 one warm round and no HiGHS, many
+   at 1,000 instances, tall random_vlp(q=2, m=25, n=250)): it exits 0,
+   its result line parses and holds every key of the repo's bench.py
+   line, and its device stage launched the cluster kernel;
+17. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
 its main path: the examples of phase 4 for the cluster variant, the
 large VLP of phase 4 for the global one; launches_dual_f32 in phase 7;
-max |obj kernel - plain|,
-kernel, plain and bound times at example10's P2 shape, cold, and the
-kernel's time warm); the last line is {"ok": true, "device": {...}}.  Any failed phase raises and exits non-zero before
-those lines.  Without a CUDA device, or without the package beside this
+launches_bench_device in phase 16's device stage; max |obj kernel -
+plain|, kernel, plain and bound times at example10's P2 shape, cold,
+and the kernel's time warm; the same at the bench's device shape under
+bench_shape); the last line is {"ok": true, "device": {...}}.  Any
+failed phase raises and exits non-zero before those lines.  Without a
+CUDA device, or without the package beside this
 script, it exits non-zero and prints no result.
 
 ``--only 10 12`` runs just the named phases after phase 1 and prints no
@@ -142,8 +155,12 @@ import time
 import numpy as np
 import torch
 
-F32_KW = dict(lp_dtype="float32", eps_benson_phase1=1e-4,
-              eps_benson_phase2=1e-4)
+from bensolve_tpu_torch.bench import (F32_KW, MANY_LPS, MANY_ROUNDS,
+                                      P2_IPM_MIN, check_support,
+                                      highs_one, host_fallback_cap,
+                                      images_close, make_instances,
+                                      make_p2_instances, smi_line)
+
 DUAL_KW = dict(alg_phase1="dual", alg_phase2="dual")
 # the tall phase's VLP: examples.random_vlp(q, m, n); its P2 LP is
 # (m+q+q+1) x (n+q+1), tall by a factor of about n/m
@@ -160,7 +177,6 @@ EX10_P2 = (350, 347)  # example10's P2 LP, padded to Mp=384, NT=768
 # seed), B LPs per round, through the interior-point route
 IPM_CONFIG = dict(q=5, m=1000, n=2000, seed=7)
 IPM_B = 128
-IPM_MIN = 2000
 IPM_WARM_ROUNDS = {"float32": 3, "float64": 1}
 # LPs of the cold round, and at most this many LPs bound for the host
 # per dtype, held to HiGHS (~18 s each on the host, in HIGHS_WORKERS
@@ -184,28 +200,39 @@ MANY_SERIAL = 32
 # took 1,111 s with it) was cut to keep the script well inside its time
 # limit; 2,048 still splits the round into 75 chunks
 MANY_CHUNKS = (2048, 16384, 65536)
-# config #5's LPs and lockstep rounds, equal in the JAX record and in
-# every unsharded run on an H100
-MANY_LPS, MANY_ROUNDS = 740_232, 15
 HETERO = (((2, 6, 5), 0), ((3, 10, 8), 100), ((2, 4, 9), 200))
 HETERO_N = 200
 # the mesh phase: entries of one card per mesh (each on a stream of its
-# own); its float32 example (example10 over the mesh took 379 s at
-# float32 on an H100, past the script's time limit, so the float32
-# check runs example05) and its tall VLP (phase 8's m=50, n=500 took
-# 80 s over the mesh), cut to keep the script inside its time limit
+# own); its float64 and float32 examples (example10 over the mesh took
+# 132-218 s at float64 and 379 s at float32 on an H100) and its tall VLP
+# (phase 8's m=50, n=500 took 80 s over the mesh), cut to keep the
+# script inside its time limit; config #5, the heterogeneous run and the
+# tall VLP keep the mesh's paths covered
 MESH_N = 4
+MESH_F64_EXAMPLE = "example05"
 MESH_F32_EXAMPLE = "example05"
 MESH_TALL = (2, 25, 250)
+# the bench's device stage: make_instances(M, N, B), 16 launches of 256
+BENCH_LPS = (96, 96, 4096)
+# phase 16: bensolve_tpu_torch.bench with every stage, at reduced depth
+# where a stage repeats an earlier phase (p2: phase 10; many: phase 13;
+# tall: phase 8)
+BENCH_ARGS = ("--p2-warm", "1", "--highs-k", "0", "--many", "1000",
+              "--tall", "2", "25", "250")
+BENCH_TIMEOUT_S = 600
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 # angle (degrees) within which an extreme direction found at float32
 # counts as a copy of a float64 one (phase 4 on example10): the CPU's
 # float32 routes list near-copies of the true directions (2.7e-5 to
-# 5.5e-5 deg off), the card's kernel route also directions farther off
-# (ROADMAP Queue 3 m); phase 4 prints them and does not fail on them
+# 5.5e-5 deg off), the card also a direction farther off inside the
+# true recession cone (ROADMAP Queue 3 m); phase 4 prints them
 F32_DIR_DEG = 1e-2
+# phase 4's gate: every float32 direction d in the cone of the float64
+# ones R, the nonnegative least-squares residual of R^T l = d/|d| at
+# most this
+F32_CONE_RESIDUAL = 1e-4
 
 
 # results of earlier phases that the mesh phase holds its runs to; a
@@ -215,13 +242,6 @@ _RESULTS = {}
 
 def log(*args):
     print(*args, flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_environment():
@@ -283,19 +303,6 @@ def phase_build():
         raise AssertionError("no cluster fits at example10's P2 shape")
 
 
-def make(M, N, B, seed):
-    """The random-batch recipe of tests/test_pallas_simplex.py::make."""
-    rng = np.random.default_rng(seed)
-    A = (rng.standard_normal((M, N)) / np.sqrt(N)).astype(np.float32)
-    x0 = rng.random((B, N)).astype(np.float32)
-    b = (x0 @ A.T + 0.5 + rng.random((B, M))).astype(np.float32)
-    c = rng.standard_normal((B, N)).astype(np.float32)
-    rlb = np.full((B, M), -np.inf, np.float32)
-    clb = np.zeros((B, N), np.float32)
-    cub = np.full((B, N), 10.0, np.float32)
-    return A, c, rlb, b, clb, cub
-
-
 def _time_ms(fn, reps):
     """CUDA-event time per call; the caller has just run ``fn`` once on
     the same inputs, which serves as the warm-up."""
@@ -337,20 +344,20 @@ def _errors(name, ker, plain, same_basis):
     return errs
 
 
-def _bound_ms(inputs, work):
-    """The least time the card could take for this batch: every input
-    read once and every output written once at 3.35 TB/s, against the
-    flops this run's data needs at the 67 TFLOP/s float32 peak (2 Mp NT
-    for each of the initial xb and d2 sums, each pricing pass and each
-    rank-1 update, from the kernel's own counts).  (ms, bound_by, mean
-    loop steps, pricing-pass share of the steps)."""
-    W0, c = inputs[0], inputs[1]
-    Mp, NT = W0.shape
-    B = c.shape[0]
+def _bound_ms(inputs, work, M, N):
+    """The least time the card could take for this batch of M x N LPs:
+    every input read once and every output written once at 3.35 TB/s,
+    against the flops this run's data needs at the 67 TFLOP/s float32
+    peak (2 M (N+M) on the LP's unpadded tableau for each of the initial
+    xb and d2 sums, each pricing pass and each rank-1 update, from the
+    kernel's own counts).  (ms, bound_by, mean loop steps, pricing-pass
+    share of the steps)."""
+    B = inputs[1].shape[0]
+    NT = N + M
     steps, passes, pivots = work.cpu().numpy().astype(np.int64).T
-    nbytes = (Mp * NT * 4 + B * NT * (3 * 4 + 1) + Mp * 4
-              + B * (4 + Mp * 4 + NT + 4))
-    flops = 2.0 * Mp * NT * float((2 + passes + pivots).sum())
+    nbytes = (M * NT * 4 + B * NT * (3 * 4 + 1) + M * 4
+              + B * (4 + M * 4 + NT + 4))
+    flops = 2.0 * M * NT * float((2 + passes + pivots).sum())
     t_bytes, t_flops = nbytes / 3.35e12, flops / 67e12
     return (max(t_bytes, t_flops) * 1e3,
             "bytes" if t_bytes >= t_flops else "operations",
@@ -417,7 +424,7 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
                            device=dev)
         gs.solve_batch_group(*inputs["a"], work=work)
         out["bound_ms"], out["bound_by"], steps, pass_share = _bound_ms(
-            inputs["a"], work)
+            inputs["a"], work, *args[0].shape)
         g_out = gs.solve_batch_group(*inputs["a"], variant="global")
         g = _recover(gs, args, start_basis, *g_out, dev)
         if not (g.status == plain.status).all():
@@ -476,88 +483,34 @@ def _recover(gs, args, start_basis, status, basis, at_upper, iters, dev):
 
 def phase_kernel():
     """Each variant against the plain version at its shape; returns the
-    numbers at example10's P2 shape, cold and warm, and the global
-    variant's obj error at its own shape."""
+    numbers at example10's P2 shape, cold and warm, the global variant's
+    obj error at its own shape, and the numbers at the bench's device
+    shape (one launch of 256 of its LPs)."""
     from bensolve_tpu_torch.lp import group_simplex as gs
 
-    small = make(16, 16, 8, 0)
+    small = make_instances(16, 16, 8, 0)
     cold = gs.lp_batch_group(*small, device="cuda")
     i0 = int(np.flatnonzero(cold.status == 1)[0])
     _compare("M=N=16 cold", small, None, 20)
     _compare("M=N=16 shared warm", small,
              (cold.basis[i0], cold.at_upper[i0]), 20)
     for M, B in ((160, 16), (200, 16), (500, 8)):
-        _compare(f"M=N={M} cold", make(M, M, B, 0), None, 3)
-    glob = _compare("M=N=700 cold", make(700, 700, 4, 0), None, 1)
-    big = make(*EX10_P2, 256, 1)
+        _compare(f"M=N={M} cold", make_instances(M, M, B, 0), None, 3)
+    glob = _compare("M=N=700 cold", make_instances(700, 700, 4, 0), None, 1)
+    big = make_instances(*EX10_P2, 256, 1)
     assert gs.padded_shape(*EX10_P2) == (384, 768)
     ex10 = _compare("ex10 P2 shape cold", big, None, 3, ab=True)
     warm = gs.lp_batch_group(*big, device="cuda")
     j0 = int(np.flatnonzero(warm.status == 1)[0])
     ex10_w = _compare("ex10 P2 shape shared warm", big,
                       (warm.basis[j0], warm.at_upper[j0]), 3, ab=True)
-    return ex10, ex10_w, glob
-
-
-def canonical(result):
-    """P and the solution points/directions of the canonical min
-    problem (undo the sign flips of bslv_vlp.c:856-861 and the output
-    transforms)."""
-    vlp, sol = result.vlp, result.sol
-    flip = (sol.c_dir.value < 0) == (vlp.optdir == 1)
-    P_eff = (-vlp.P if flip else vlp.P).astype(float)
-    pts, dirs = result.primal_points.copy(), result.primal_directions.copy()
-    pos = sol.c_dir.value > 0
-    if (pos and vlp.optdir == -1) or (not pos and vlp.optdir == 1):
-        pts, dirs = -pts, -dirs
-    return P_eff, pts, dirs
-
-
-def check_support(result, tol, n_samples=64):
-    """Support-function oracle (the method of tests/test_e2e.py): for
-    sampled w in the interior of C*, min over the solution points of
-    w'y equals min over the feasible set of w'P x (scipy/HiGHS) within
-    tol * (1 + |h|).  Returns the worst relative gap."""
-    from scipy.optimize import linprog
-
-    vlp, sol = result.vlp, result.sol
-    P_eff, pts, dirs = canonical(result)
-    assert pts.shape[0] > 0
-    A_ub, b_ub, A_eq, b_eq = [], [], [], []
-    for i in range(vlp.m):
-        lo, hi = vlp.rows.lb[i], vlp.rows.ub[i]
-        if np.isfinite(lo) and lo == hi:
-            A_eq.append(vlp.A[i]); b_eq.append(lo)
-        else:
-            if np.isfinite(hi):
-                A_ub.append(vlp.A[i]); b_ub.append(hi)
-            if np.isfinite(lo):
-                A_ub.append(-vlp.A[i]); b_ub.append(-lo)
-    kw = {}
-    if A_ub:
-        kw["A_ub"], kw["b_ub"] = np.array(A_ub), np.array(b_ub)
-    if A_eq:
-        kw["A_eq"], kw["b_eq"] = np.array(A_eq), np.array(b_eq)
-    rng = np.random.default_rng(0)
-    worst = 0.0
-    for _ in range(n_samples):
-        w = sol.Z @ (rng.random(sol.p) + 1e-3)
-        w = w / np.abs(w).sum()
-        lp = linprog(w @ P_eff, bounds=list(zip(vlp.cols.lb, vlp.cols.ub)),
-                     method="highs", **kw)
-        h_hat = float(np.min(pts @ w))
-        if dirs.size and np.min(dirs @ w) < -1e-9:
-            h_hat = -np.inf
-        if lp.status == 3:
-            assert not np.isfinite(h_hat), "oracle: unbounded missed"
-            continue
-        assert lp.status == 0, lp.message
-        gap = abs(h_hat - lp.fun) / (1 + abs(lp.fun))
-        worst = max(worst, gap)
-        if not gap <= tol:
-            raise AssertionError(f"support oracle: gap {gap:.2e} > {tol} "
-                                 f"at w={w}")
-    return worst
+    # one launch of the bench's device stage: its first 256 LPs
+    A, *rest = make_instances(*BENCH_LPS)
+    bench = (A,) + tuple(x[:256] for x in rest)
+    assert gs.padded_shape(*BENCH_LPS[:2]) == (96, 256)
+    bench_shape = _compare("bench device shape cold (first 256 LPs)", bench,
+                           None, 10, ab=True)
+    return ex10, ex10_w, glob, bench_shape
 
 
 def _options(**kw):
@@ -594,27 +547,6 @@ def _sets_close(a, b, tol):
     worst, _ = _set_distance(a, b)
     if not worst <= tol:
         raise AssertionError(f"point sets differ by {worst:.2e} > {tol}")
-    return worst
-
-
-def _images_close(ra, rb, tol, n_samples=4096):
-    """Largest relative gap between the support functions (min over the
-    points of w'y) of two solutions' upper images, at sampled w in the
-    interior of C*: the weights of check_support, many more of them.
-    Two epsilon-solutions of one VLP agree here even where their vertex
-    lists differ: along a nearly straight stretch of the boundary one
-    algorithm may keep a vertex the other never visits."""
-    _, pa, _ = canonical(ra)
-    _, pb, _ = canonical(rb)
-    rng = np.random.default_rng(1)
-    worst = 0.0
-    for _ in range(n_samples // 1024):
-        W = ra.sol.Z @ (rng.random((ra.sol.p, 1024)) + 1e-3)
-        W /= np.abs(W).sum(axis=0)
-        ha, hb = (pa @ W).min(axis=0), (pb @ W).min(axis=0)
-        worst = max(worst, float((np.abs(ha - hb) / (1 + np.abs(hb))).max()))
-    if not worst <= tol:
-        raise AssertionError(f"upper images differ by {worst:.2e} > {tol}")
     return worst
 
 
@@ -740,11 +672,16 @@ def _direction_angles(dirs, ref):
 
 
 def _f32_directions(r):
-    """Prints how example10's extreme directions at float32 lie against
-    the float64 ones (phase 5's run): the angle from each to the nearest
+    """How example10's extreme directions at float32 lie against the
+    float64 ones (phase 5's run): the angle from each to the nearest
     float64 direction, those farther than F32_DIR_DEG, and the angle from
-    each float64 direction to the nearest float32 one.  Nothing here
-    fails: the card's list is not only near-copies (ROADMAP Queue 3 m)."""
+    each float64 direction to the nearest float32 one, printed; the
+    gate: every float32 direction in the cone of the float64 ones (NNLS
+    residual at most F32_CONE_RESIDUAL).  A far direction inside the
+    cone is a redundant generator of the right image (ROADMAP Queue 3
+    m); one outside it would be a wrong image."""
+    from scipy.optimize import nnls
+
     if "main f64" not in _RESULTS:
         _RESULTS["main f64"] = _solve("example10", _options())
     ref = _RESULTS["main f64"][0].primal_directions
@@ -759,6 +696,16 @@ def _f32_directions(r):
         f"{F32_DIR_DEG:g} deg{': ' + '; '.join(far) if far else ''}; "
         f"float64 to the nearest float32 one: worst "
         f"{from_ref.max(initial=0):.3g} deg")
+    cone = (ref / np.linalg.norm(ref, axis=1, keepdims=True)).T
+    resid = [nnls(cone, d / np.linalg.norm(d))[1] for d in got]
+    worst = max(resid, default=0.0)
+    log(f"[main f32] example10: every float32 direction in the cone of the "
+        f"float64 ones: worst NNLS residual {worst:.1e} (limit "
+        f"{F32_CONE_RESIDUAL:g})")
+    if not worst <= F32_CONE_RESIDUAL:
+        raise AssertionError(f"example10 float32: a direction lies outside "
+                             f"the float64 recession cone (NNLS residual "
+                             f"{worst:.2e})")
 
 
 def phase_large_f32():
@@ -873,7 +820,7 @@ def phase_tall():
             f"{np.mean(secs):.3f} s, max {max(secs):.3f} s; host clock "
             f"with syncs)")
     (rp, _), (rd, _) = out["primal"], out["dual"]
-    gap = _images_close(rp, rd, 1e-6)
+    gap = images_close(rp, rd, 1e-6)
     dist, n_apart = _set_distance(rp.primal_points, rd.primal_points)
     log(f"[tall f64] P2 LP {shape[0]}x{shape[1]} (N/M = "
         f"{shape[1] / shape[0]:.1f}); revised batched solves "
@@ -919,47 +866,17 @@ def phase_revised_vs_cpu():
             f"{cpu.iters.tolist()}")
 
 
-def _highs_one(A, ci, rlb, rub, clb, cub):
-    """One serial HiGHS solve with the full bound-type range (the
-    recipe of bench.py::_highs_one: free rows dropped)."""
-    from scipy.optimize import linprog
-
-    eq = np.isfinite(rlb) & np.isfinite(rub) & (rlb == rub)
-    ub_rows = np.isfinite(rub) & ~eq
-    lb_rows = np.isfinite(rlb) & ~eq
-    A_ub = np.concatenate([A[ub_rows], -A[lb_rows]])
-    b_ub = np.concatenate([rub[ub_rows], -rlb[lb_rows]])
-    return linprog(ci, A_ub=A_ub if A_ub.size else None,
-                   b_ub=b_ub if b_ub.size else None,
-                   A_eq=A[eq] if eq.any() else None,
-                   b_eq=rub[eq] if eq.any() else None,
-                   bounds=list(zip(clb, cub)), method="highs")
-
-
 def _highs_timed(*args):
-    """_highs_one(*args) and its seconds (in a worker process)."""
+    """highs_one(*args) and its seconds (in a worker process)."""
     t0 = time.perf_counter()
-    return _highs_one(*args), time.perf_counter() - t0
+    return highs_one(*args), time.perf_counter() - t0
 
 
 def _ipm_p2_template(dtype):
     """bench.py::make_p2_instances through the port: the P2 template of
     BASELINE config #4 with ipm_min=2000, and B synthetic frontier
     bounds."""
-    from bensolve_tpu_torch.algs.templates import INHOMOGENEOUS, P2Template
-    from bensolve_tpu_torch.examples import random_vlp
-
-    cfg = IPM_CONFIG
-    q = cfg["q"]
-    vlp = random_vlp(**cfg)
-    Z = np.eye(q)
-    Z = Z / (Z.T @ np.full(q, 1.0 / q))[None, :]
-    t2 = P2Template(vlp, vlp.P.astype(float), Z, np.full(q, 1.0 / q),
-                    INHOMOGENEOUS, dtype=dtype, ipm_min=IPM_MIN,
-                    device="cuda")
-    rng = np.random.default_rng(cfg["seed"] + 1)
-    V = rng.random((IPM_B, q)) * 2.0 + 1.0
-    return t2, V @ t2.ZR
+    return make_p2_instances(IPM_B, **IPM_CONFIG, dtype=dtype, device="cuda")
 
 
 def _iteration_bound(M, Nc, B, dtype, needed=True):
@@ -1063,19 +980,12 @@ def phase_ipm_config4():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    saved = os.environ.get("BENSOLVE_HOST_FALLBACK_MAX")
-    os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = "0"
-    try:
-        with ProcessPoolExecutor(
-                HIGHS_WORKERS,
-                mp_context=multiprocessing.get_context("spawn")) as pool:
-            highs = None
-            for dtype in ("float32", "float64"):
-                highs = _ipm_rounds(dtype, highs, pool)
-    finally:
-        os.environ.pop("BENSOLVE_HOST_FALLBACK_MAX", None)
-        if saved is not None:
-            os.environ["BENSOLVE_HOST_FALLBACK_MAX"] = saved
+    with host_fallback_cap(0), ProcessPoolExecutor(
+            HIGHS_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        highs = None
+        for dtype in ("float32", "float64"):
+            highs = _ipm_rounds(dtype, highs, pool)
 
 
 def _ipm_rounds(dtype, highs, pool):
@@ -1096,7 +1006,7 @@ def _ipm_rounds(dtype, highs, pool):
                              clb[i], cub[i]) for i in range(IPM_HIGHS_LPS)]
     if dtype == "float32":
         log(f"[ipm] config #4: random_vlp({IPM_CONFIG}) P2 LP {M}x{N}, "
-            f"B={IPM_B}, ipm_min={IPM_MIN}; host HiGHS fallback capped at "
+            f"B={IPM_B}, ipm_min={P2_IPM_MIN}; host HiGHS fallback capped at "
             f"0 LPs (the reference's cap is 32, at 12-22 s per LP here)")
     loose = []
     for r in range(1 + IPM_WARM_ROUNDS[dtype]):
@@ -1162,7 +1072,7 @@ def _ipm_rounds(dtype, highs, pool):
         t0 = time.perf_counter()
         for i in itlim:
             obj, rlb, rub, clb, cub = t2.build_inputs(ub[i:i + 1])
-            h = _highs_one(t2.A_lp, obj[0], rlb[0], rub[0], clb[0], cub[0])
+            h = highs_one(t2.A_lp, obj[0], rlb[0], rub[0], clb[0], cub[0])
             if h.status != 0:
                 raise AssertionError(f"HiGHS LP {i}: {h.message}")
         if itlim.size:
@@ -1641,7 +1551,7 @@ def _mesh_example(gate, name, dtype_kw, ref, tol, tag, n_devices):
             f"gap {gap:.1e} (limit {tol:g})")
     if ref is not None:
         r0, wall0 = ref
-        img = _images_close(r, r0, 1e-6)
+        img = images_close(r, r0, 1e-6)
         gate(img <= 1e-6, f"{tag}: upper image")
         dist, n_apart = _set_distance(r.primal_points, r0.primal_points)
         line += (f"; unsharded: {wall0:.2f} s, LPs "
@@ -1687,13 +1597,12 @@ def phase_mesh():
         f"{[str(d) for d in mesh.devices.flat]}; "
         f"torch.cuda.device_count() {torch.cuda.device_count()}")
 
-    # example10 at float64 against phase 5's run, and MESH_F32_EXAMPLE
-    # at float32, whose batches the kernel takes without a mesh (phase 4)
-    if "main f64" not in _RESULTS:
-        _RESULTS["main f64"] = _solve("example10", _options())
-    ref = _RESULTS["main f64"]
-    _mesh_example(gate, "example10", {}, ref, 1e-4,
-                  f"example10 float64 dp x{MESH_N}", MESH_N)
+    # MESH_F64_EXAMPLE at float64 against its unsharded run, and
+    # MESH_F32_EXAMPLE at float32, whose batches the kernel takes without
+    # a mesh (phase 4)
+    ref = _solve(MESH_F64_EXAMPLE, _options())
+    _mesh_example(gate, MESH_F64_EXAMPLE, {}, ref, 1e-4,
+                  f"{MESH_F64_EXAMPLE} float64 dp x{MESH_N}", MESH_N)
     before = _launches()
     _mesh_example(gate, MESH_F32_EXAMPLE, F32_KW, None, 1e-3,
                   f"{MESH_F32_EXAMPLE} float32 dp x{MESH_N}", MESH_N)
@@ -1794,7 +1703,7 @@ def phase_mesh():
     gate(r.status.name == "OPTIMAL", f"tall: status {r.status}")
     gate(revised.CALLS > calls, "tall: the revised simplex did not run")
     gate(watch.calls > 0, "tall: no sharded solve ran")
-    img = _images_close(r, r0, 1e-6)
+    img = images_close(r, r0, 1e-6)
     gap = check_support(r, 1e-4)
     shape = make_mesh(MESH_N, ("dp", "tp"), device="cuda").shape
     log(f"[mesh] random_vlp(q={q}, m={m}, n={n}) float64 primal over "
@@ -1808,12 +1717,45 @@ def phase_mesh():
 
     if torch.cuda.device_count() > 1:
         k = torch.cuda.device_count()
-        _mesh_example(gate, "example10", {}, ref, 1e-4,
-                      f"example10 float64 over the {k} cards", None)
+        _mesh_example(gate, MESH_F64_EXAMPLE, {}, ref, 1e-4,
+                      f"{MESH_F64_EXAMPLE} float64 over the {k} cards", None)
     else:
         log("[mesh] one card: the run over several cards was not made")
     log(f"[mesh] {gate.passed} gates passed")
     return gate.passed
+
+
+def phase_bench():
+    """python -m bensolve_tpu_torch.bench with every stage, BENCH_ARGS
+    cutting the depth of the stages that repeat earlier phases, in a
+    process of its own: it must exit 0, and its last line must parse,
+    hold every key of the repo's bench.py line and show the device
+    stage's batch launched on the cluster kernel.  Returns that line."""
+    from bensolve_tpu_torch import bench
+
+    cmd = [sys.executable, "-m", "bensolve_tpu_torch.bench", *BENCH_ARGS]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    for ln in out.stderr.splitlines():
+        if ln.startswith("#"):
+            log(f"[bench] {ln[2:]}")
+    if out.returncode != 0:
+        raise AssertionError(f"bench exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    missing = [k for k in bench.BENCH_KEYS + bench.EXTRA_KEYS
+               if k not in line]
+    if missing:
+        raise AssertionError(f"bench line lacks {missing}")
+    if not line["device_kernel_launches"]["cluster"] > 0:
+        raise AssertionError(f"bench device stage: kernel launches "
+                             f"{line['device_kernel_launches']}")
+    log(f"[bench] {' '.join(cmd[1:])}: exit 0 in {wall:.1f} s; "
+        f"{json.dumps(line)}")
+    return line
 
 
 def main() -> int:
@@ -1833,7 +1775,7 @@ def main() -> int:
         _log_total(t_start)
         return 0
     _timed("2", phase_build)
-    ex10, ex10_w, glob = _timed("3", phase_kernel)
+    ex10, ex10_w, glob, bench_shape = _timed("3", phase_kernel)
     # phase 5 first: phase 4 holds its float32 directions to its run
     primal = _timed("5", phase_main_f64)
     launches = _timed("4", phase_main_f32)
@@ -1848,28 +1790,41 @@ def main() -> int:
     _timed("13", phase_many)
     _timed("14", phase_aux)
     _timed("15", phase_mesh)
+    bench_line = _timed("16", phase_bench)
     _log_total(t_start)
     log(smi_line())
     common = {"route": "cuda", "source": KERNEL_SOURCE,
               "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
               "bound_ms": ex10["bound_ms"], "bound_by": ex10["bound_by"],
               "library_ms": None}
+    bench_launches = bench_line["device_kernel_launches"]
     log(json.dumps({"kernels": [
         dict(name="group_simplex_cluster", **common,
              launches=launches["cluster"],
              launches_dual_f32=launches_dual["cluster"],
+             launches_bench_device=bench_launches["cluster"],
              cluster_size=ex10["C"], max_abs_err=ex10["err"],
-             ms=ex10["ms"], ms_warm=ex10_w["ms"]),
+             ms=ex10["ms"], ms_warm=ex10_w["ms"],
+             bench_shape=_shape_numbers(bench_shape, "ms")),
         dict(name="group_simplex_global", **common,
              launches=launches_large["global"],
              launches_f32_examples=launches["global"],
              launches_dual_f32=launches_dual["global"],
+             launches_bench_device=bench_launches["global"],
              max_abs_err=max(ex10["err_global"], glob["err"]),
-             ms=ex10["ms_global"], ms_warm=ex10_w["ms_global"])]}))
+             ms=ex10["ms_global"], ms_warm=ex10_w["ms_global"],
+             bench_shape=_shape_numbers(bench_shape, "ms_global"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _shape_numbers(out, ms_key):
+    """A variant's numbers at the bench's device shape (phase 3)."""
+    return {"C": out["C"], "ms": out[ms_key], "plain_ms": out["plain_ms"],
+            "bound_ms": out["bound_ms"], "bound_by": out["bound_by"],
+            "max_abs_err": out["err" if ms_key == "ms" else "err_global"]}
 
 
 PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
@@ -1877,7 +1832,7 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,
           "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
-          "15": phase_mesh}
+          "15": phase_mesh, "16": phase_bench}
 # seconds per phase, and the mesh phase's passed gates, for [total]
 _PHASE_S = {}
 

@@ -6,7 +6,8 @@ the CPU, with TF32 off; lp_ipm_min takes a float32 solve past the
 kernel's route to the interior-point method; a per-instance-matrix LP
 batch and a 64-instance solve_many give on the card what they give on
 the CPU; a "dp" mesh of streams on the card (and over the cards, where
-there are several) gives the one-device result.
+there are several) gives the one-device result; the bench's device
+stage launches the kernel.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -380,3 +381,17 @@ def test_solve_many_mesh_on_card_matches_unsharded(cuda_device):
         W /= np.abs(W).sum(axis=0)
         ha, hb = (a.primal_points @ W).min(0), (b.primal_points @ W).min(0)
         assert (np.abs(ha - hb) / (1 + np.abs(ha))).max() <= 1e-7
+
+
+@pytest.mark.cuda
+def test_bench_device_stage_launches_the_kernel(cuda_device):
+    """The bench's device stage at its LP shape (96 x 96, one launch of
+    256 LPs) takes the cluster kernel (C = 1), every LP OPTIMAL cold and
+    warm (the stage's gates), the first 8 objectives within 1e-3 of
+    HiGHS."""
+    from bensolve_tpu_torch import bench
+
+    assert gs.plan(*gs.padded_shape(96, 96)) == ("cluster", 1)
+    out = bench.run_device("cuda", 96, 96, 256, reps=1)
+    assert out["launches"] == {"cluster": 2, "global": 0}
+    bench.run_serial(out["inputs"], 8, out["obj"])

@@ -36,7 +36,8 @@ def test_import_leaves_jax_out():
             "bensolve_tpu_torch.parallel.distributed, "
             "bensolve_tpu_torch.parallel.mesh, "
             "bensolve_tpu_torch.io.checkpoint, bensolve_tpu_torch.io.plot, "
-            "bensolve_tpu_torch.vlp.writer; "
+            "bensolve_tpu_torch.vlp.writer, bensolve_tpu_torch.bench, "
+            "bensolve_tpu_torch.scale_many; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'bensolve_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
