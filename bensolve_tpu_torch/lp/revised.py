@@ -24,6 +24,7 @@ Reference contract: bslv_lp.c:219-303.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -31,8 +32,8 @@ import torch
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, INFEASIBLE, ITLIM,
                                            OPTIMAL, RUNNING, SEGMENT_MAX,
-                                           UNBOUNDED, LPResult, _nb_value,
-                                           _set_at, _take, _tf32_off, _tols)
+                                           LPResult, _nb_value, _set_at,
+                                           _take, _tf32_off, _tols)
 
 # batched device solves run by this backend (one per chunk), on any
 # device; the tests and chip_smoke.py read it to see the route was taken
@@ -76,44 +77,26 @@ def _initial_rstate(A, c, lb, ub, basis0=None, at_upper0=None, Brows0=None):
     """Start state.  ``basis0``: None (slack basis), a shared (M,) basis
     or per-instance (B, M) bases, with ``Brows0`` their (1 or B, M, M)
     basis-column rows built on the host (_host_brows)."""
-    B, NT = c.shape
-    M, N = A.shape
-    dev, dtype = c.device, c.dtype
-    eye = torch.eye(M, dtype=dtype, device=dev)
+    B = c.shape[0]
+    M = A.shape[0]
+    dev = c.device
+    eye = torch.eye(M, dtype=c.dtype, device=dev)
+    basis, in_basis, at_upper = sx._basis_masks(c, lb, ub, M, basis0,
+                                                at_upper0)
     if basis0 is None:
-        basis = torch.arange(M, device=dev).repeat(B, 1)
-        in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
-        in_basis[:, :M] = True
         Binv = eye.repeat(B, 1, 1)
         Brows = eye.repeat(B, 1, 1)   # identity basis: rows ARE unit vectors
     elif basis0.ndim == 2:
         # per-instance warm start: batched LU of each candidate's basis
-        basis = basis0.long()
-        in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
-        in_basis.scatter_(1, basis, True)
         Brows = Brows0
         LU, piv = sx._lu_factor(Brows.transpose(1, 2))
         Binv = sx._lu_solve(LU, piv, eye.expand(B, M, M))
     else:
-        b0 = basis0.long()
-        basis = b0.expand(B, M).clone()
-        in_basis1 = torch.zeros(NT, dtype=torch.bool, device=dev)
-        in_basis1[b0] = True
-        in_basis = in_basis1.expand(B, NT).clone()
         Brows1 = Brows0[0]
         LU, piv = sx._lu_factor(Brows1.T[None])
         Binv0 = sx._lu_solve(LU, piv, eye[None])[0]
         Binv = Binv0.expand(B, M, M).clone()
         Brows = Brows1.expand(B, M, M).clone()
-    fin_lb, fin_ub = torch.isfinite(lb), torch.isfinite(ub)
-    if at_upper0 is None:
-        at_upper = (~fin_lb) & fin_ub & ~in_basis
-    else:
-        at_upper = at_upper0.bool()
-        if at_upper.ndim == 1:
-            at_upper = at_upper[None, :]
-        at_upper = at_upper.expand(B, NT) & fin_ub & ~in_basis
-        at_upper = at_upper | ((~fin_lb) & fin_ub & ~in_basis)
     zn = torch.where(in_basis, c.new_zeros(()), _nb_value(lb, ub, at_upper))
     rhs = -sx._e_matmul(A, zn)                                      # (B, M)
     xb = rhs if basis0 is None else torch.bmm(Binv, rhs[:, :, None])[:, :, 0]
@@ -138,21 +121,11 @@ def _rstep(A, AT, c, lb, ub, st: _RState, step: int):
     ``torch.where``: the JAX package skips it with a device-side branch,
     which in torch would cost a host read per pivot.  The selected
     values, hence the pivots, are the same."""
-    TOL_BND, TOL_DJ, TOL_PIV = _tols(c.dtype)
+    TOL_DJ = _tols(c.dtype)[1]
     M = A.shape[0]
     running = st.status == RUNNING
     zero = c.new_zeros(())
-    one = c.new_ones(())
-    # filled on the device: new_tensor would copy from the host, and a
-    # blocking host-to-device copy waits for the card every pivot
-    inf = c.new_full((), float("inf"))
-
-    viol_lo = st.xb < st.lbB - TOL_BND
-    viol_up = st.xb > st.ubB + TOL_BND
-    feasible = ~(viol_lo | viol_up).any(dim=1)
-
-    cB1 = torch.where(viol_up, one, zero) + torch.where(viol_lo, -one, zero)
-    cB_eff = torch.where(feasible[:, None], st.cB, cB1)
+    viol_lo, viol_up, feasible, cB_eff = sx._phase_costs(st)
     y = torch.bmm(cB_eff[:, None, :], st.Binv)[:, 0, :]           # (B, M)
 
     # while every running instance is primal feasible, the carried cost
@@ -187,106 +160,52 @@ def _rstep(A, AT, c, lb, ub, st: _RState, step: int):
                              st.status)
     act = running & has_entering & finite
 
-    sigma = torch.where(_take(elig_inc, q_idx), one, -one)
-
     # pivot column alpha = Binv @ E_q
     e_q = _e_col(AT, q_idx, M)                                     # (B, M)
     alpha = torch.bmm(st.Binv, e_q[:, :, None])[:, :, 0]
-    rate = -sigma[:, None] * alpha
+    ent = types.SimpleNamespace(inc=_take(elig_inc, q_idx),
+                                lb=_take(lb, q_idx), ub=_take(ub, q_idx),
+                                val=_take(val, q_idx), c=_take(c, q_idx))
+    pv = sx._pivot(st, alpha, q_idx, ent, viol_lo, viol_up, feasible,
+                   new_status, act, use_bland)
 
-    inc = rate > TOL_PIV
-    dec = rate < -TOL_PIV
-    target_inc = torch.where(viol_lo, st.lbB, st.ubB)
-    target_dec = torch.where(viol_up, st.ubB, st.lbB)
-    t_inc = torch.where(viol_up, inf, (target_inc - st.xb) / rate)
-    t_dec = torch.where(viol_lo, inf, (target_dec - st.xb) / rate)
-    t = torch.where(inc, t_inc, torch.where(dec, t_dec, inf))
-    t = torch.maximum(t, zero)
-    t = torch.where(torch.isnan(t), inf, t)
-
-    tmin = t.min(dim=1).values
-    cand = t <= tmin[:, None] + 1e-12
-    stab_score = torch.where(cand, rate.abs(), -one)
-    bland_leave = torch.where(cand, -st.basis.to(c.dtype), -inf)
-    leave_score = torch.where(use_bland[:, None], bland_leave, stab_score)
-    r_idx = leave_score.argmax(dim=1)
-
-    lb_q = _take(lb, q_idx)
-    ub_q = _take(ub, q_idx)
-    span = ub_q - lb_q
-    span = torch.where(torch.isfinite(span), span, inf)
-    do_flip = span < tmin
-    t_star = torch.where(do_flip, span, tmin)
-
-    unbounded = act & feasible & ~torch.isfinite(t_star)
-    new_status = torch.where(unbounded, UNBOUNDED, new_status).to(torch.int32)
-    act = act & torch.isfinite(t_star)
-
-    delta = torch.where(act, sigma * t_star, zero)
-    xb_new = st.xb - delta[:, None] * alpha
-
-    do_pivot = act & ~do_flip
-    alpha_r = _take(alpha, r_idx)
-    alpha_r = torch.where(alpha_r.abs() < TOL_PIV,
-                          torch.where(alpha_r < 0, -TOL_PIV * one,
-                                      TOL_PIV * one), alpha_r)
-
-    # rank-1 basis-inverse update (product form): Binv_i -= alpha_i b_r,
-    # Binv_r = b_r, with b_r = Binv_r / alpha_r; the row-r replacement
-    # and the do_pivot mask fold into one coefficient vector.  Binv is
-    # updated IN PLACE: every start and refactorization makes a fresh one
-    row_r = r_idx[:, None, None].expand(-1, 1, M)
+    # rank-1 basis-inverse update (product form): Binv_i -= coef_i b_r,
+    # with b_r = Binv_r / alpha_r.  Binv is updated IN PLACE: every start
+    # and refactorization makes a fresh one
+    row_r = pv.r_idx[:, None, None].expand(-1, 1, M)
     b_r = st.Binv.gather(1, row_r)[:, 0, :]
-    b_r_scaled = b_r / alpha_r[:, None]
-    coef = alpha.scatter_add(1, r_idx[:, None],
-                             -torch.ones_like(alpha_r)[:, None])
-    coef = torch.where(do_pivot[:, None], coef, zero)
-    Binv_new = st.Binv.addcmul_(coef[:, :, None], b_r_scaled[:, None, :],
+    b_r_scaled = b_r / pv.alpha_r[:, None]
+    Binv_new = st.Binv.addcmul_(pv.coef[:, :, None], b_r_scaled[:, None, :],
                                 value=-1)
-
-    leaving = _take(st.basis, r_idx)
-    val_q = _take(val, q_idx)
-    xb_new = _set_at(xb_new, r_idx, val_q + delta, do_pivot)
-    basis_new = _set_at(st.basis, r_idx, q_idx, do_pivot)
 
     # basis-matrix rows follow the basis: slot r's column becomes E_q
     cur_row = st.Brows.gather(1, row_r)[:, 0, :]
-    new_row = torch.where(do_pivot[:, None], e_q, cur_row)
+    new_row = torch.where(pv.do_pivot[:, None], e_q, cur_row)
     Brows_new = st.Brows.scatter_(1, row_r, new_row[:, None, :])
 
-    lbB_new = _set_at(st.lbB, r_idx, lb_q, do_pivot)
-    ubB_new = _set_at(st.ubB, r_idx, ub_q, do_pivot)
-    cB_new = _set_at(st.cB, r_idx, _take(c, q_idx), do_pivot)
-
-    true = torch.ones_like(do_pivot)
-    in_basis_new = _set_at(st.in_basis, q_idx, true, do_pivot)
-    in_basis_new = _set_at(in_basis_new, leaving, ~true, do_pivot)
-
-    rate_r = _take(rate, r_idx)
-    leave_at_upper = torch.where(rate_r > 0, ~_take(viol_lo, r_idx),
-                                 _take(viol_up, r_idx))
-    at_upper_new = _set_at(st.at_upper, leaving, leave_at_upper, do_pivot)
+    true = torch.ones_like(pv.do_pivot)
+    in_basis_new = _set_at(st.in_basis, q_idx, true, pv.do_pivot)
+    in_basis_new = _set_at(in_basis_new, pv.leaving, ~true, pv.do_pivot)
+    at_upper_new = _set_at(st.at_upper, pv.leaving, pv.leave_at_upper,
+                           pv.do_pivot)
     q_at_upper = _take(st.at_upper, q_idx)
-    at_upper_new = _set_at(at_upper_new, q_idx, ~q_at_upper, act & do_flip)
+    at_upper_new = _set_at(at_upper_new, q_idx, ~q_at_upper,
+                           pv.act & pv.do_flip)
 
-    degen = act & (t_star < TOL_BND)
-    stall_new = torch.where(act, torch.where(degen, st.stall + 1, 0),
-                            st.stall).to(torch.int32)
-    iters_new = st.iters + act.to(torch.int32)
     # devex needs the pivot ROW over all NT columns: w_r = Binv_r @ E,
     # one more shared-A matmul per pivot
     w_r_full = sx._e_rmatmul(A, b_r_scaled)                        # (B, NT)
-    gamma_new = sx._devex_update(st.gamma, w_r_full, alpha_r, q_idx,
-                                 leaving, do_pivot)
+    gamma_new = sx._devex_update(st.gamma, w_r_full, pv.alpha_r, q_idx,
+                                 pv.leaving, pv.do_pivot)
 
     # carried cost row: d' = d - d_q * w_r (exact phase-2 update)
     d_q = _take(d, q_idx)[:, None]
-    dred_new = torch.where(do_pivot[:, None], d - d_q * w_r_full, d)
+    dred_new = torch.where(pv.do_pivot[:, None], d - d_q * w_r_full, d)
     force_new = (running & ~feasible) | (would_finish & ~run_full)
 
-    new = _RState(basis_new, in_basis_new, at_upper_new, Binv_new,
-                  Brows_new, xb_new, lbB_new, ubB_new, cB_new, new_status,
-                  stall_new, iters_new, gamma_new, dred_new, force_new,
+    new = _RState(pv.basis, in_basis_new, at_upper_new, Binv_new,
+                  Brows_new, pv.xb, pv.lbB, pv.ubB, pv.cB, pv.status,
+                  pv.stall, pv.iters, gamma_new, dred_new, force_new,
                   st.resets)
     return new, running.any()
 
@@ -395,7 +314,7 @@ def _perturbed_bounds(lb: np.ndarray, ub: np.ndarray, dtype):
     return lb1.astype(dtype), ub1.astype(dtype)
 
 
-def _run(A, AT, c, lb, ub, st: _RState, step: int, cap: int, every: int):
+def _run(stepper, refactor, st, step: int, cap: int, every: int):
     """Pivot until no LP is running or ``step`` reaches ``cap``, with the
     JAX package's refactorization schedule: after step t (counted after
     the pivot), refactorize when t % every == 0, or when t % 16 == 0 and
@@ -403,13 +322,15 @@ def _run(A, AT, c, lb, ub, st: _RState, step: int, cap: int, every: int):
     host once every 16 steps (the schedule) and at the end of each
     segment (1, 2, 4, ... up to SEGMENT_MAX steps).  Steps taken after
     the last LP finished change nothing the result reads; they are not
-    counted and never refactorize.  Returns (state, step)."""
+    counted and never refactorize.  ``stepper(st, step)`` takes one
+    pivot and returns (state, device bool: any LP was running);
+    ``refactor(st)`` refactorizes.  Returns (state, step)."""
     alive = bool((st.status == RUNNING).any())
     seg = 1
     while alive and step < cap:
-        last = torch.tensor(step, device=c.device)
+        last = torch.tensor(step, device=st.status.device)
         for _ in range(min(seg, cap - step)):
-            st, ran = _rstep(A, AT, c, lb, ub, st, step)
+            st, ran = stepper(st, step)
             step += 1
             last = torch.where(ran, step, last)
             periodic = step % every == 0
@@ -418,7 +339,7 @@ def _run(A, AT, c, lb, ub, st: _RState, step: int, cap: int, every: int):
                        & ~torch.isfinite(st.xb).all(dim=1)).any()
                 ran_h, bad_h = torch.stack([ran, bad]).tolist()
                 if ran_h and (periodic or (bad_h and step % 16 == 0)):
-                    st = _refactor(A, c, lb, ub, st)
+                    st = refactor(st)
         step, alive = torch.stack(
             [last, (st.status == RUNNING).any().to(last.dtype)]).tolist()
         alive = bool(alive)
@@ -448,13 +369,271 @@ def _solve_revised_segmented(A, AT, c, lb, ub, basis0, at_upper0, Brows0,
     lb_run, ub_run = pert if pert is not None else (lb, ub)
     st = _initial_rstate(A, c, lb_run, ub_run, basis0, at_upper0, Brows0)
     every = _refactor_interval(A.shape[0], c.shape[1], c.dtype)
-    st, step = _run(A, AT, c, lb_run, ub_run, st, 0, max_iter, every)
+
+    def run(lb_s, ub_s, st, step, cap):
+        return _run(lambda s, k: _rstep(A, AT, c, lb_s, ub_s, s, k),
+                    lambda s: _refactor(A, c, lb_s, ub_s, s),
+                    st, step, cap, every)
+
+    st, step = run(lb_run, ub_run, st, 0, max_iter)
     if pert is not None:
         st = _rebound(A, c, lb, ub, st)
         # cleanup budget: warm re-verification is short
-        st, step = _run(A, AT, c, lb, ub, st, step,
-                        step + max(2 * A.shape[0], 2000), every)
+        st, step = run(lb, ub, st, step, step + max(2 * A.shape[0], 2000))
     return _finish(A, c, lb, ub, st)
+
+
+# ------------------------------------------------- tp: column panels
+#
+# The revised route over a dp row's T panels (lp/simplex.py's _Panel,
+# parallel/mesh.py's PanelLayout): panel k holds its ms columns of B^-1
+# and of the basis rows (the minor axis, as the JAX package's
+# P(dp, None, tp)), its ns columns of A and rows of A^T, and its columns
+# of every per-variable row.  Per pivot: y = cB^T B^-1 is computed per
+# panel and all-gathered; each panel prices its own columns and offers
+# its candidate with the candidate's column of E; alpha = B^-1 E_q is
+# summed from the panels' partial products; the pivot row b_r is local
+# and all-gathered for the devex and carried-cost updates.
+
+
+def _tp_lead_rstate(c, lb, ub, basis, xb):
+    """The lead's (B, M) revised loop state (per-column fields None)."""
+    st = sx._tp_lead_state(c, lb, ub, basis, xb)
+    B = c.shape[0]
+    return _RState(st.basis, None, None, None, None, st.xb, st.lbB, st.ubB,
+                   st.cB, st.status, st.stall, st.iters, None, None,
+                   torch.ones(B, dtype=torch.bool, device=c.device),
+                   torch.zeros_like(st.stall))
+
+
+def _tp_binv_xb(ts, rhs):
+    """B^-1 @ rhs (B, Mp) on the lead: the panels' partial products over
+    their columns of B^-1, summed (all-reduce)."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    lay = ts.lay
+    parts = [torch.bmm(p.Binv, lay.rows(r, p.k)[:, :, None])[:, :, 0]
+             for p, r in zip(ts.panels, pmesh.to_all(rhs, ts.devs))]
+    return pmesh.all_reduce(parts, ts.devs[:1])[0]
+
+
+def _tp_initial_rstate(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
+                       Brows0):
+    """The panelled start of _initial_rstate: a warm basis's rows (on the
+    lead) are factored once there, and each panel solves for its own
+    columns of B^-1."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    B = c.shape[0]
+    M = lay.Mp
+    basis, in_basis, at_upper = sx._basis_masks(c, lb, ub, M, basis0,
+                                                at_upper0)
+    panels = sx._tp_panels(lay, devs, A_panels, c, lb, ub, in_basis,
+                           at_upper)
+    if basis0 is None:
+        for p in panels:
+            p.Binv = lay.eye(p.k, c.dtype, p.dev).repeat(B, 1, 1)
+            p.Brows = p.Binv.clone()
+    else:
+        shared = basis0.ndim == 1
+        LU, piv = sx._lu_factor(Brows0.transpose(1, 2))
+        for p, LU_k, piv_k, br in zip(panels, pmesh.to_all(LU, devs),
+                                      pmesh.to_all(piv, devs),
+                                      pmesh.to_all(Brows0, devs)):
+            eye_k = lay.eye(p.k, c.dtype, p.dev)
+            p.Binv = sx._lu_solve(LU_k, piv_k,
+                                  eye_k.expand(LU.shape[0], M, lay.ms))
+            p.Brows = lay.rows(br, p.k)
+            if shared:
+                p.Binv = p.Binv.expand(B, M, lay.ms).clone()
+                p.Brows = p.Brows.expand(B, M, lay.ms).clone()
+    for p in panels:
+        p.dred = torch.zeros_like(p.c)
+    ts = sx._TPState(lay, devs, panels, None, c, lb, ub)
+    rhs = -sx._tp_e_zn(ts, devs[:1])[0]
+    xb = rhs if basis0 is None else _tp_binv_xb(ts, rhs)
+    ts.lead = _tp_lead_rstate(c, lb, ub, basis, xb)
+    return ts
+
+
+def _tp_rstep(ts, step: int):
+    """One revised pivot of _rstep over the row's panels (see above).
+    Returns (state, device bool: any LP was running)."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    lay, ld, devs = ts.lay, ts.lead, ts.devs
+    TOL_DJ = _tols(ts.c.dtype)[1]
+    M = lay.Mp
+    running = ld.status == RUNNING
+    viol_lo, viol_up, feasible, cB_eff = sx._phase_costs(ld)
+    use_bland = ld.stall > BLAND_AFTER
+    run_full = ((running & ~feasible) | (running & ld.force)).any()
+    if step % 64 == 0:
+        run_full = torch.ones_like(run_full)
+
+    # y = cB^T B^-1: each panel its own columns, then all-gathered
+    sent = list(zip(*(pmesh.to_all(x, devs) for x in
+                      (cB_eff, feasible, use_bland, run_full))))
+    y_loc = [torch.bmm(cBe[:, None, :], p.Binv)[:, 0, :]
+             for p, (cBe, _, _, _) in zip(ts.panels, sent)]
+    ys = [y[:, :M] for y in pmesh.all_gather(y_loc, devs)]
+
+    cands, cols, ds = [], [], []
+    lane = torch.arange(M, device=devs[0])
+    for p, (_, feas, bland, full_on), y, y_k in zip(ts.panels, sent, ys,
+                                                     y_loc):
+        full = (torch.where(feas[:, None], p.c, p.c.new_zeros(()))
+                - torch.cat([y_k, -(y @ p.A)], dim=1))
+        d = torch.where(full_on, full, p.dred)
+        cand = _tp_candidate_e(lay, p, d, bland, TOL_DJ, lane.to(p.dev))
+        cands.append(cand[:4])
+        cols.append(torch.cat([_take(d, cand[2])[:, None], cand[4]], dim=1))
+        ds.append(d)
+    q_idx, has_entering, ent, q_at_upper, gamma_q, col = sx._tp_enter(
+        ts, cands, cols)
+    d_q, e_q = col[:, 0], col[:, 1:]
+
+    finite = torch.isfinite(ld.xb).all(dim=1) & torch.isfinite(ys[0]).all(
+        dim=1)
+    finish_status = torch.where(feasible, OPTIMAL, INFEASIBLE).to(torch.int32)
+    would_finish = running & ~has_entering & finite
+    new_status = torch.where(would_finish & run_full, finish_status,
+                             ld.status)
+    act = running & has_entering & finite
+
+    # alpha = B^-1 E_q: the entering column to every panel, the panels'
+    # partial products summed
+    e_qs = pmesh.to_all(e_q, devs)
+    alpha = pmesh.all_reduce(
+        [torch.bmm(p.Binv, lay.rows(e, p.k)[:, :, None])[:, :, 0]
+         for p, e in zip(ts.panels, e_qs)], devs[:1])[0]
+    pv = sx._pivot(ld, alpha, q_idx, ent, viol_lo, viol_up, feasible,
+                   new_status, act, use_bland)
+
+    # each panel's rank-1 update of its columns of B^-1 and basis rows
+    sends = sx._tp_send_pivot(ts, pv, q_idx, gamma_q, q_at_upper)
+    b_loc = []
+    for p, (r_idx, coef, s), e in zip(ts.panels, sends, e_qs):
+        row_r = r_idx[:, None, None].expand(-1, 1, lay.ms)
+        b_r = p.Binv.gather(1, row_r)[:, 0, :]
+        b_loc.append(b_r / s[0][:, None])
+        p.Binv.addcmul_(coef[:, :, None], b_loc[-1][:, None, :], value=-1)
+        cur_row = p.Brows.gather(1, row_r)[:, 0, :]
+        new_row = torch.where(s[1][:, None], lay.rows(e, p.k), cur_row)
+        p.Brows.scatter_(1, row_r, new_row[:, None, :])
+    # the pivot row w_r = b_r E over every column: b_r all-gathered
+    d_qs = pmesh.to_all(d_q, devs)
+    for p, (_, _, s), b_k, b, d, dq in zip(
+            ts.panels, sends, b_loc, pmesh.all_gather(b_loc, devs), ds,
+            d_qs):
+        w_r = torch.cat([b_k, -(b[:, :M] @ p.A)], dim=1)
+        sx._tp_after_pivot(lay, p, w_r, s)
+        p.dred = torch.where(s[1][:, None], d - dq[:, None] * w_r, d)
+    force_new = (running & ~feasible) | (would_finish & ~run_full)
+    ts.lead = dataclasses.replace(
+        ld, basis=pv.basis, xb=pv.xb, lbB=pv.lbB, ubB=pv.ubB, cB=pv.cB,
+        status=pv.status, stall=pv.stall, iters=pv.iters, force=force_new)
+    ts.steps += 1
+    return ts, running.any()
+
+
+def _tp_candidate_e(lay, p, d, use_bland, tol_dj, lane):
+    """simplex._tp_candidate plus the candidate's column of E (B, Mp):
+    a unit vector for a slack, -A's column (a row of A^T) otherwise."""
+    score, g, loc, packet = sx._tp_candidate(p, d, use_bland, tol_dj)
+    aux_col = (g[:, None] == lane[None, :]).to(d.dtype)
+    a_col = -p.AT.index_select(0, (loc - lay.ms).clamp(0, lay.ns - 1))
+    e = torch.where((loc < lay.ms)[:, None], aux_col, a_col)
+    return score, g, loc, packet, e
+
+
+def _tp_refactor(ts):
+    """_refactor over the row's panels: the basis rows gathered on the
+    lead and factored once, each panel solving for its own columns of
+    B^-1; the singular-basis reset applied per panel."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    lay, ld, devs = ts.lay, ts.lead, ts.devs
+    M = lay.Mp
+    B = ts.c.shape[0]
+    rows = pmesh.all_gather([p.Brows for p in ts.panels], devs[:1])[0]
+    LU, piv = sx._lu_factor(rows[:, :, :M].transpose(1, 2))
+    eyes = []
+    for p, LU_k, piv_k in zip(ts.panels, pmesh.to_all(LU, devs),
+                              pmesh.to_all(piv, devs)):
+        eyes.append(lay.eye(p.k, ts.c.dtype, p.dev).expand(B, M, lay.ms))
+        p.Binv = sx._lu_solve(LU_k, piv_k, eyes[-1])
+    xb = _tp_binv_xb(ts, -sx._tp_e_zn(ts, devs[:1])[0])
+    binv_ok = torch.stack(
+        [torch.isfinite(p.Binv.reshape(B, -1)).all(dim=1).to(devs[0])
+         for p in ts.panels]).all(dim=0)
+    bad = (ld.status == RUNNING) & ~(torch.isfinite(xb).all(dim=1) & binv_ok)
+    aux = torch.arange(M, device=devs[0])
+    basis = torch.where(bad[:, None], aux[None, :], ld.basis)
+    for p, bad_k, eye_k in zip(ts.panels, pmesh.to_all(bad, devs), eyes):
+        slack1 = (p.gidx < M)[None, :]
+        p.in_basis = torch.where(bad_k[:, None], slack1, p.in_basis)
+        atup_def = ((~torch.isfinite(p.lb)) & torch.isfinite(p.ub)
+                    & ~slack1)
+        p.at_upper = torch.where(bad_k[:, None], atup_def, p.at_upper)
+        p.Binv = torch.where(bad_k[:, None, None], eye_k, p.Binv)
+        p.Brows = torch.where(bad_k[:, None, None], eye_k, p.Brows)
+        p.gamma = torch.where(bad_k[:, None], p.c.new_ones(()), p.gamma)
+    xb = torch.where(bad[:, None], -sx._tp_e_zn(ts, devs[:1])[0], xb)
+    ts.lead = dataclasses.replace(
+        ld, basis=basis, xb=xb,
+        lbB=torch.where(bad[:, None], ts.lb.gather(1, basis), ld.lbB),
+        ubB=torch.where(bad[:, None], ts.ub.gather(1, basis), ld.ubB),
+        cB=torch.where(bad[:, None], ts.c.gather(1, basis), ld.cB),
+        stall=torch.where(bad, 0, ld.stall).to(torch.int32),
+        force=torch.ones_like(ld.force),
+        resets=ld.resets + bad.to(torch.int32))
+    return ts
+
+
+def _tp_rebound(ts, lb, ub):
+    """_rebound over the row's panels: the exact bounds ``lb``/``ub``
+    (B, NT, on the lead) replace the perturbed ones everywhere."""
+    ts.lb, ts.ub = lb, ub
+    for p, lb_k, ub_k in zip(ts.panels, ts.lay.split(lb), ts.lay.split(ub)):
+        p.lb = lb_k.to(p.dev, non_blocking=True)
+        p.ub = ub_k.to(p.dev, non_blocking=True)
+    ld = ts.lead
+    xb = _tp_binv_xb(ts, -sx._tp_e_zn(ts, ts.devs[:1])[0])
+    status = torch.where(ld.status == INFEASIBLE, INFEASIBLE,
+                         RUNNING).to(torch.int32)
+    ts.lead = dataclasses.replace(
+        ld, lbB=lb.gather(1, ld.basis), ubB=ub.gather(1, ld.basis), xb=xb,
+        status=status, stall=torch.zeros_like(ld.stall),
+        force=torch.ones_like(ld.force))
+    return ts
+
+
+def _solve_revised_tp(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
+                      Brows0, max_iter, pert=None):
+    """_solve_revised_segmented over a dp row's T panels: ``devs`` the
+    row's tp entries (the lead first, where the (B, NT) rows, the warm
+    start and its basis rows live), ``A_panels`` {(k, device): (A_k,
+    A_k^T)} from parallel/mesh.py's a_panels.  The refactorization
+    schedule and the exact pricing passes are decided once per row, over
+    its whole batch, as the unsplit solve decides them."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    global CALLS
+    CALLS += 1
+    lb_run, ub_run = pert if pert is not None else (lb, ub)
+    ts = _tp_initial_rstate(lay, devs, A_panels, c, lb_run, ub_run, basis0,
+                            at_upper0, Brows0)
+    every = _refactor_interval(lay.Mp, c.shape[1], c.dtype)
+    ts, step = _run(_tp_rstep, _tp_refactor, ts, 0, max_iter, every)
+    if pert is not None:
+        ts = _tp_rebound(ts, lb, ub)
+        ts, step = _run(_tp_rstep, _tp_refactor, ts, step,
+                        step + max(2 * lay.Mp, 2000), every)
+    rows = pmesh.all_gather([p.Brows for p in ts.panels], devs[:1])[0]
+    out = sx._tp_finish(ts, rows[:, :, :lay.Mp])
+    pmesh.record_split("revised", ts.panels, ts.steps)
+    return out
 
 
 def _host_brows(prep: sx._PreparedA, b0: np.ndarray, dtype) -> np.ndarray:
@@ -523,13 +702,16 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
     the torch device every LP tensor lives on.  ``mesh``: a
     ``parallel.mesh.Mesh`` (Options.mesh_axes): the padded batch, grown
     until the "dp" axis divides it, is solved in contiguous shards over
-    the dp entries, in place of ``device``; every LP's basis inverse
-    stays whole on its entry (a "tp" axis splits nothing, see
-    parallel/mesh.py).  ``verbose`` >= 2 prints one summary line per
-    batched solve."""
+    the dp rows, in place of ``device``; with a "tp" axis every LP's
+    basis inverse, basis rows and columns of A are split into panels
+    over its row's tp entries (parallel/mesh.py), and no device holds
+    the whole A.  ``verbose`` >= 2 prints one summary line per batched
+    solve."""
     dev = sx.resolve_device(device)
+    tp = mesh is not None and mesh.shape.get("tp", 1) > 1
+    host = torch.device("cpu")
     if not isinstance(A, sx._PreparedA):
-        sc = _prepare_scaled(A, dtype, dev)
+        sc = _prepare_scaled(A, dtype, host if tp else dev)
         r, cv = sc.rscale, sc.cscale
         res = solve_batch_revised(
             sc.prep, np.atleast_2d(np.asarray(c)) * cv[None, :],
@@ -541,7 +723,7 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
                         res.s / r[None, :], res.row_dual * r[None, :],
                         res.col_dual / cv[None, :], res.iters,
                         res.basis, res.at_upper)
-    prep = sx._prepare_A(A, dtype, dev)
+    prep = sx._prepare_A(A, dtype, host if tp else dev)
     np_dt = prep.host.dtype
     M, N, Mp, Np = prep.M, prep.N, prep.Mp, prep.Np
     if max_chunk is None:
@@ -565,12 +747,12 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
 
     B = c2.shape[0]
     Bp = sx._bucket_batch(B, Mp)
-    entries = None
+    rows = None
     if mesh is not None:
         from bensolve_tpu_torch.parallel import mesh as pmesh
 
-        entries = pmesh.shard_entries(mesh, "dp")
-        Bp = pmesh.padded_batch(Bp, len(entries))
+        rows = pmesh.mesh_rows(mesh)
+        Bp = pmesh.padded_batch(Bp, len(rows))
     if max_iter is None:
         # the generic shape-derived cap, bounded for huge-N instances
         max_iter = min(50 * (Mp + Np) + 500, 40 * Mp + 20000)
@@ -589,20 +771,36 @@ def solve_batch_revised(A, c, row_lb, row_ub, col_lb, col_ub, *,
         return _solve_revised_segmented(p.dev, p.devT, c_t, lb_t, ub_t, b_t,
                                         u_t, brows_t, max_iter, pert)
 
+    per = b0 is not None and b0.ndim == 2
     with _tf32_off():
-        if entries is None:
+        if rows is None:
             prep.transposed()
             out = solve(prep, *(None if a is None else sx._put(a, dev)
                                 for a in (full_c, lb, ub, lb1, ub1, b0, u0,
                                           brows)))
+        elif tp:
+            lay = pmesh.PanelLayout(Mp, Np, len(rows[0]))
+            A_panels = pmesh.a_panels(prep, lay, rows, transposed=True)
+
+            def solve_tp(row, c_t, lb_t, ub_t, lb1_t, ub1_t, b_t, u_t, br_t):
+                b_t, u_t = sx._shard_warm(b0, u0, b_t, u_t, row[0])
+                if br_t is None and brows is not None:
+                    br_t = sx._put(brows, row[0])
+                return _solve_revised_tp(
+                    lay, row, A_panels, c_t, lb_t, ub_t, b_t, u_t, br_t,
+                    max_iter, None if lb1_t is None else (lb1_t, ub1_t))
+
+            out = pmesh.map_shards(
+                rows, (full_c, lb, ub, lb1, ub1) + sx._batched_warm(b0, u0)
+                + (brows if per else None,), solve_tp)
         else:
+            entries = [r[0] for r in rows]
             # each distinct device's A and A^T are made here, before the
             # shard threads read them
             preps = {d: sx._prepare_A(prep, np_dt, d)
                      for d in dict.fromkeys(entries)}
             for p in preps.values():
                 p.transposed()
-            per = b0 is not None and b0.ndim == 2
             out = pmesh.map_shards(
                 entries, (full_c, lb, ub, lb1, ub1) + sx._batched_warm(b0, u0)
                 + (brows if per else None,),

@@ -270,40 +270,27 @@ def _devex_update(gamma, w_r_scaled, alpha_r, q_idx, leaving, do_pivot):
     return torch.where(g_new > 1e8, torch.ones_like(g_new), g_new)
 
 
-def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
-    """Initial tableau state.  ``basis0``: None (slack basis), a shared
-    (M,) basis (one LU for the whole batch) or per-instance (B, M)
-    bases (batched LU).  ``at_upper0``: the previous solution's nonbasic
-    bound pattern, (NT,) or (B, NT).  Over per-instance matrices
-    (``A`` (B, M, N)) E is per-instance too, and a shared warm basis is
-    still one factorization per instance."""
+def _basis_masks(c, lb, ub, M, basis0, at_upper0):
+    """A start's (B, M) basis and (B, NT) in_basis / at_upper masks from
+    ``basis0``: None (slack basis), a shared (M,) basis or per-instance
+    (B, M) bases; ``at_upper0``: the previous solution's nonbasic bound
+    pattern, (NT,) or (B, NT), or None."""
     B, NT = c.shape
-    M = A.shape[-2]
     dev = c.device
-    E = _E(A)
-    if basis0 is not None and basis0.ndim == 1 and A.ndim == 3:
-        basis0 = basis0.expand(B, M)
     if basis0 is None:
         basis = torch.arange(M, device=dev).repeat(B, 1)
         in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
         in_basis[:, :M] = True
-        # a 3-D E is this call's own tensor: the tableau may take it
-        W = E if A.ndim == 3 else E.repeat(B, 1, 1)
     elif basis0.ndim == 2:
         basis = basis0.long().contiguous()
         in_basis = torch.zeros(B, NT, dtype=torch.bool, device=dev)
         in_basis.scatter_(1, basis, True)
-        LU, piv = _lu_factor(_batched_basis_matrices(A, basis))
-        W = _lu_solve(LU, piv, E.expand(B, M, NT))
     else:
         b0 = basis0.long()
         basis = b0.expand(B, M).clone()
         in_basis1 = torch.zeros(NT, dtype=torch.bool, device=dev)
         in_basis1[b0] = True
         in_basis = in_basis1.expand(B, NT).clone()
-        LU, piv = _lu_factor(_batched_basis_matrices(A, b0[None]))
-        W0 = _lu_solve(LU, piv, E[None])
-        W = W0.expand(B, M, NT).clone()
     fin_lb, fin_ub = torch.isfinite(lb), torch.isfinite(ub)
     if at_upper0 is None:
         at_upper = (~fin_lb) & fin_ub & ~in_basis
@@ -316,6 +303,32 @@ def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
         at_upper = at_upper & fin_ub & ~in_basis
         # a nonbasic with only an upper bound must rest there
         at_upper = at_upper | ((~fin_lb) & fin_ub & ~in_basis)
+    return basis, in_basis, at_upper
+
+
+def _initial_state(A, c, lb, ub, basis0=None, at_upper0=None):
+    """Initial tableau state.  ``basis0``: None (slack basis), a shared
+    (M,) basis (one LU for the whole batch) or per-instance (B, M)
+    bases (batched LU).  ``at_upper0``: the previous solution's nonbasic
+    bound pattern, (NT,) or (B, NT).  Over per-instance matrices
+    (``A`` (B, M, N)) E is per-instance too, and a shared warm basis is
+    still one factorization per instance."""
+    B, NT = c.shape
+    M = A.shape[-2]
+    E = _E(A)
+    if basis0 is not None and basis0.ndim == 1 and A.ndim == 3:
+        basis0 = basis0.expand(B, M)
+    basis, in_basis, at_upper = _basis_masks(c, lb, ub, M, basis0, at_upper0)
+    if basis0 is None:
+        # a 3-D E is this call's own tensor: the tableau may take it
+        W = E if A.ndim == 3 else E.repeat(B, 1, 1)
+    elif basis0.ndim == 2:
+        LU, piv = _lu_factor(_batched_basis_matrices(A, basis))
+        W = _lu_solve(LU, piv, E.expand(B, M, NT))
+    else:
+        LU, piv = _lu_factor(_batched_basis_matrices(A, basis0.long()[None]))
+        W0 = _lu_solve(LU, piv, E[None])
+        W = W0.expand(B, M, NT).clone()
     return _start_state(c, lb, ub, basis, in_basis, at_upper, W)
 
 
@@ -336,24 +349,138 @@ def _start_state(c, lb, ub, basis, in_basis, at_upper, W):
                   status, zeros, zeros.clone(), torch.ones_like(c))
 
 
-def _step(A, c, lb, ub, st: _State) -> _State:
-    """One primal pivot for every running LP of the batch (the torch
-    form of the JAX package's ``_step``)."""
-    TOL_BND, TOL_DJ, TOL_PIV = _tols(c.dtype)
-    running = st.status == RUNNING
-    zero = c.new_zeros(())
-    one = c.new_ones(())
-    # filled on the device: new_tensor would copy from the host, and a
-    # blocking host-to-device copy waits for the card every pivot
-    inf = c.new_full((), float("inf"))
-
+def _phase_costs(st):
+    """The step's view of the basics: (viol_lo, viol_up, feasible,
+    cB_eff), the effective basic costs being the true costs in phase 2
+    and +-1 on the violating basics in the composite phase 1."""
+    TOL_BND = _tols(st.xb.dtype)[0]
+    zero = st.xb.new_zeros(())
+    one = st.xb.new_ones(())
     viol_lo = st.xb < st.lbB - TOL_BND
     viol_up = st.xb > st.ubB + TOL_BND
     feasible = ~(viol_lo | viol_up).any(dim=1)                     # (B,)
-
-    # effective costs: true costs in phase 2, +-1 on violating basics in ph.1
     cB1 = torch.where(viol_up, one, zero) + torch.where(viol_lo, -one, zero)
     cB_eff = torch.where(feasible[:, None], st.cB, cB1)
+    return viol_lo, viol_up, feasible, cB_eff
+
+
+@dataclasses.dataclass
+class _Pivot:
+    """What one pivot decides on the (B, M) vectors (``_pivot``): the new
+    basis metadata, and what the caller's tableau or basis-inverse
+    update needs."""
+
+    basis: torch.Tensor
+    xb: torch.Tensor
+    lbB: torch.Tensor
+    ubB: torch.Tensor
+    cB: torch.Tensor
+    status: torch.Tensor
+    stall: torch.Tensor
+    iters: torch.Tensor
+    r_idx: torch.Tensor           # (B,) leaving slot
+    alpha_r: torch.Tensor         # (B,) pivot element, clamped off zero
+    coef: torch.Tensor            # (B, M) rank-1 coefficients (0 off pivot)
+    act: torch.Tensor             # (B,) a step is taken (pivot or flip)
+    do_pivot: torch.Tensor        # (B,) the basis changes
+    do_flip: torch.Tensor         # (B,) the entering variable flips bound
+    leaving: torch.Tensor         # (B,) leaving variable (global index)
+    leave_at_upper: torch.Tensor  # (B,) the bound it rests at
+
+
+def _pivot(st, alpha, q_idx, ent, viol_lo, viol_up, feasible, new_status,
+           act, use_bland) -> _Pivot:
+    """The ratio test (composite phase-1 aware, short-step rule), the
+    entering variable's bound flip and the basis metadata of one pivot,
+    shared by the tableau and the revised simplex and by their panelled
+    forms.  ``st``: the loop state's (B, M) vectors (basis, xb, lbB, ubB,
+    cB, stall, iters); ``alpha`` (B, M) the entering column B^-1 E_q;
+    ``ent``: the entering variable's (inc, lb, ub, val, c), each (B,):
+    whether it increases, its bounds, resting value and cost;
+    ``new_status``/``act``: the finish verdicts and which LPs step."""
+    TOL_BND, _, TOL_PIV = _tols(alpha.dtype)
+    zero = alpha.new_zeros(())
+    one = alpha.new_ones(())
+    # filled on the device: new_tensor would copy from the host, and a
+    # blocking host-to-device copy waits for the card every pivot
+    inf = alpha.new_full((), float("inf"))
+    sigma = torch.where(ent.inc, one, -one)
+    rate = -sigma[:, None] * alpha                                 # dxB/dt
+
+    inc = rate > TOL_PIV
+    dec = rate < -TOL_PIV
+    target_inc = torch.where(viol_lo, st.lbB, st.ubB)
+    target_dec = torch.where(viol_up, st.ubB, st.lbB)
+    t_inc = torch.where(viol_up, inf, (target_inc - st.xb) / rate)
+    t_dec = torch.where(viol_lo, inf, (target_dec - st.xb) / rate)
+    t = torch.where(inc, t_inc, torch.where(dec, t_dec, inf))
+    t = torch.maximum(t, zero)
+    t = torch.where(torch.isnan(t), inf, t)
+
+    tmin = t.min(dim=1).values                                     # (B,)
+    # leaving among near-minimal ratios: largest |pivot| (stability), or
+    # smallest variable index under Bland
+    cand = t <= tmin[:, None] + 1e-12
+    stab_score = torch.where(cand, rate.abs(), -one)
+    bland_leave = torch.where(cand, -st.basis.to(alpha.dtype), -inf)
+    leave_score = torch.where(use_bland[:, None], bland_leave, stab_score)
+    r_idx = leave_score.argmax(dim=1)                              # (B,)
+
+    # entering variable's own opposite bound (bound flip)
+    span = ent.ub - ent.lb
+    span = torch.where(torch.isfinite(span), span, inf)
+    do_flip = span < tmin
+    t_star = torch.where(do_flip, span, tmin)
+
+    unbounded = act & feasible & ~torch.isfinite(t_star)
+    new_status = torch.where(unbounded, UNBOUNDED, new_status).to(torch.int32)
+    act = act & torch.isfinite(t_star)
+
+    # apply the step
+    delta = torch.where(act, sigma * t_star, zero)                 # (B,)
+    xb_new = st.xb - delta[:, None] * alpha
+
+    do_pivot = act & ~do_flip
+    alpha_r = _take(alpha, r_idx)
+    alpha_r = torch.where(alpha_r.abs() < TOL_PIV,
+                          torch.where(alpha_r < 0, -TOL_PIV * one,
+                                      TOL_PIV * one), alpha_r)
+    # rank-1 coefficients: alpha_i off row r, alpha_r - 1 on it (the row
+    # replacement), 0 where no pivot is taken
+    coef = alpha.scatter_add(1, r_idx[:, None],
+                             -torch.ones_like(alpha_r)[:, None])
+    coef = torch.where(do_pivot[:, None], coef, zero)
+
+    leaving = _take(st.basis, r_idx)
+    xb_new = _set_at(xb_new, r_idx, ent.val + delta, do_pivot)
+    basis_new = _set_at(st.basis, r_idx, q_idx, do_pivot)
+
+    # incremental basis metadata at slot r
+    lbB_new = _set_at(st.lbB, r_idx, ent.lb, do_pivot)
+    ubB_new = _set_at(st.ubB, r_idx, ent.ub, do_pivot)
+    cB_new = _set_at(st.cB, r_idx, ent.c, do_pivot)
+
+    # leaving variable rests at the ratio-test target bound
+    rate_r = _take(rate, r_idx)
+    leave_at_upper = torch.where(rate_r > 0, ~_take(viol_lo, r_idx),
+                                 _take(viol_up, r_idx))
+
+    degen = act & (t_star < TOL_BND)
+    stall_new = torch.where(act, torch.where(degen, st.stall + 1, 0),
+                            st.stall).to(torch.int32)
+    iters_new = st.iters + act.to(torch.int32)
+    return _Pivot(basis_new, xb_new, lbB_new, ubB_new, cB_new, new_status,
+                  stall_new, iters_new, r_idx, alpha_r, coef, act, do_pivot,
+                  do_flip, leaving, leave_at_upper)
+
+
+def _step(A, c, lb, ub, st: _State) -> _State:
+    """One primal pivot for every running LP of the batch (the torch
+    form of the JAX package's ``_step``)."""
+    TOL_DJ = _tols(c.dtype)[1]
+    running = st.status == RUNNING
+    zero = c.new_zeros(())
+    viol_lo, viol_up, feasible, cB_eff = _phase_costs(st)
 
     # reduced costs d = c_eff - cB_eff @ W (duals y never materialized)
     d = (torch.where(feasible[:, None], c, zero)
@@ -376,104 +503,40 @@ def _step(A, c, lb, ub, st: _State) -> _State:
                              st.status)
     act = running & has_entering                                   # will pivot
 
-    sigma = torch.where(_take(elig_inc, q_idx), one, -one)
-
     # pivot column alpha = Binv E_q = W[:, :, q]
     alpha = st.W.gather(
         2, q_idx[:, None, None].expand(-1, st.W.shape[1], 1))[:, :, 0]
-    rate = -sigma[:, None] * alpha                                 # dxB/dt
+    ent = types.SimpleNamespace(inc=_take(elig_inc, q_idx),
+                                lb=_take(lb, q_idx), ub=_take(ub, q_idx),
+                                val=_take(val, q_idx), c=_take(c, q_idx))
+    pv = _pivot(st, alpha, q_idx, ent, viol_lo, viol_up, feasible,
+                new_status, act, use_bland)
 
-    # ratio test (composite phase-1 aware, short-step rule)
-    inc = rate > TOL_PIV
-    dec = rate < -TOL_PIV
-    target_inc = torch.where(viol_lo, st.lbB, st.ubB)
-    target_dec = torch.where(viol_up, st.ubB, st.lbB)
-    t_inc = torch.where(viol_up, inf, (target_inc - st.xb) / rate)
-    t_dec = torch.where(viol_lo, inf, (target_dec - st.xb) / rate)
-    t = torch.where(inc, t_inc, torch.where(dec, t_dec, inf))
-    t = torch.maximum(t, zero)
-    t = torch.where(torch.isnan(t), inf, t)
-
-    tmin = t.min(dim=1).values                                     # (B,)
-    # leaving among near-minimal ratios: largest |pivot| (stability), or
-    # smallest variable index under Bland
-    cand = t <= tmin[:, None] + 1e-12
-    stab_score = torch.where(cand, rate.abs(), -one)
-    basis_f = st.basis.to(c.dtype)
-    bland_leave = torch.where(cand, -basis_f, -inf)
-    leave_score = torch.where(use_bland[:, None], bland_leave, stab_score)
-    r_idx = leave_score.argmax(dim=1)                              # (B,)
-
-    # entering variable's own opposite bound (bound flip)
-    lb_q = _take(lb, q_idx)
-    ub_q = _take(ub, q_idx)
-    span = ub_q - lb_q
-    span = torch.where(torch.isfinite(span), span, inf)
-    do_flip = span < tmin
-    t_star = torch.where(do_flip, span, tmin)
-
-    unbounded = act & feasible & ~torch.isfinite(t_star)
-    new_status = torch.where(unbounded, UNBOUNDED, new_status).to(torch.int32)
-    act = act & torch.isfinite(t_star)
-
-    # apply the step
-    delta = torch.where(act, sigma * t_star, zero)                 # (B,)
-    xb_new = st.xb - delta[:, None] * alpha
-
-    do_pivot = act & ~do_flip
-    alpha_r = _take(alpha, r_idx)
-    alpha_r = torch.where(alpha_r.abs() < TOL_PIV,
-                          torch.where(alpha_r < 0, -TOL_PIV * one,
-                                      TOL_PIV * one), alpha_r)
-
-    # rank-1 tableau update: W_i -= alpha_i * (w_r/alpha_r), W_r = w_r/alpha_r,
-    # with the row-r replacement (coefficient alpha_r - 1) and the
-    # do_pivot mask (coefficient 0) folded into one coefficient vector.
-    # W is updated IN PLACE: every start builds a fresh tableau, so no
-    # other reference sees it, and the (B, M, NT) tableau is the whole
-    # memory footprint (a copy per pivot would double it).
+    # rank-1 tableau update: W_i -= coef_i * (w_r/alpha_r).  W is updated
+    # IN PLACE: every start builds a fresh tableau, so no other reference
+    # sees it, and the (B, M, NT) tableau is the whole memory footprint
+    # (a copy per pivot would double it).
     w_r = st.W.gather(
-        1, r_idx[:, None, None].expand(-1, 1, st.W.shape[2]))[:, 0, :]
-    w_r_scaled = w_r / alpha_r[:, None]
-    coef = alpha.scatter_add(1, r_idx[:, None], -torch.ones_like(alpha_r)[:, None])
-    coef = torch.where(do_pivot[:, None], coef, zero)
-    W_new = st.W.addcmul_(coef[:, :, None], w_r_scaled[:, None, :], value=-1)
+        1, pv.r_idx[:, None, None].expand(-1, 1, st.W.shape[2]))[:, 0, :]
+    w_r_scaled = w_r / pv.alpha_r[:, None]
+    W_new = st.W.addcmul_(pv.coef[:, :, None], w_r_scaled[:, None, :],
+                          value=-1)
 
-    leaving = _take(st.basis, r_idx)
-    val_q = _take(val, q_idx)
-    xq_new = val_q + delta
-    xb_new = _set_at(xb_new, r_idx, xq_new, do_pivot)
-    basis_new = _set_at(st.basis, r_idx, q_idx, do_pivot)
-
-    # incremental basis metadata at slot r
-    lbB_new = _set_at(st.lbB, r_idx, lb_q, do_pivot)
-    ubB_new = _set_at(st.ubB, r_idx, ub_q, do_pivot)
-    cB_new = _set_at(st.cB, r_idx, _take(c, q_idx), do_pivot)
-
-    true = torch.ones_like(do_pivot)
-    in_basis_new = _set_at(st.in_basis, q_idx, true, do_pivot)
-    in_basis_new = _set_at(in_basis_new, leaving, ~true, do_pivot)
-
-    # leaving variable rests at the ratio-test target bound
-    rate_r = _take(rate, r_idx)
-    viol_lo_r = _take(viol_lo, r_idx)
-    viol_up_r = _take(viol_up, r_idx)
-    leave_at_upper = torch.where(rate_r > 0, ~viol_lo_r, viol_up_r)
-    at_upper_new = _set_at(st.at_upper, leaving, leave_at_upper, do_pivot)
+    true = torch.ones_like(pv.do_pivot)
+    in_basis_new = _set_at(st.in_basis, q_idx, true, pv.do_pivot)
+    in_basis_new = _set_at(in_basis_new, pv.leaving, ~true, pv.do_pivot)
+    at_upper_new = _set_at(st.at_upper, pv.leaving, pv.leave_at_upper,
+                           pv.do_pivot)
     # bound flip: entering variable switches bound
     q_at_upper = _take(st.at_upper, q_idx)
-    at_upper_new = _set_at(at_upper_new, q_idx, ~q_at_upper, act & do_flip)
+    at_upper_new = _set_at(at_upper_new, q_idx, ~q_at_upper,
+                           pv.act & pv.do_flip)
+    gamma_new = _devex_update(st.gamma, w_r_scaled, pv.alpha_r, q_idx,
+                              pv.leaving, pv.do_pivot)
 
-    degen = act & (t_star < TOL_BND)
-    stall_new = torch.where(act, torch.where(degen, st.stall + 1, 0),
-                            st.stall).to(torch.int32)
-    iters_new = st.iters + act.to(torch.int32)
-    gamma_new = _devex_update(st.gamma, w_r_scaled, alpha_r, q_idx,
-                              leaving, do_pivot)
-
-    return _State(basis_new, in_basis_new, at_upper_new, W_new, xb_new,
-                  lbB_new, ubB_new, cB_new,
-                  new_status, stall_new, iters_new, gamma_new)
+    return _State(pv.basis, in_basis_new, at_upper_new, W_new, pv.xb,
+                  pv.lbB, pv.ubB, pv.cB, pv.status, pv.stall, pv.iters,
+                  gamma_new)
 
 
 def _final_solutions(A, c, lb, ub, basis, in_basis, at_upper, cB,
@@ -597,6 +660,348 @@ def _solve_tableau_segmented(A, c, lb, ub, basis0, at_upper0, max_iter):
     return _finish(A, c, lb, ub, st)
 
 
+# ------------------------------------------------- tp: column panels
+#
+# Under a mesh with a "tp" axis every LP of a dp row is split into T
+# column panels (parallel/mesh.py's PanelLayout), one per tp entry.  A
+# panel holds its columns of the tableau and of every per-variable row;
+# the row's lead holds the (B, M) basis vectors, the ratio test and the
+# status.  One pivot: each panel prices its own columns and picks its
+# devex/Bland candidate; the argmax combine picks the entering column and
+# its panel sends it (with the entering variable's bounds, cost and
+# weight) to the lead; the lead runs ``_pivot`` and sends the pivot's
+# slot and coefficients back; each panel updates its own columns.
+
+
+@dataclasses.dataclass
+class _Panel:
+    """One tp entry's columns of a panelled LP batch: its per-variable
+    rows (B, width) and its slice of the route's matrices."""
+
+    k: int
+    dev: torch.device
+    gidx: torch.Tensor       # (width,) global index of each local column
+    c: torch.Tensor          # (B, width)
+    lb: torch.Tensor
+    ub: torch.Tensor
+    A: torch.Tensor          # (Mp, ns) its columns of A
+    AT: torch.Tensor | None = None      # (ns, Mp) the same as rows (revised)
+    in_basis: torch.Tensor | None = None
+    at_upper: torch.Tensor | None = None
+    gamma: torch.Tensor | None = None   # devex weights
+    W: torch.Tensor | None = None       # (B, M, width) tableau columns
+    Binv: torch.Tensor | None = None    # (B, M, ms) columns of B^-1
+    Brows: torch.Tensor | None = None   # (B, M, ms) of the basis rows
+    dred: torch.Tensor | None = None    # carried reduced costs (revised)
+
+    @property
+    def nbytes(self) -> int:
+        ts = (getattr(self, f.name) for f in dataclasses.fields(self))
+        return sum(t.numel() * t.element_size() for t in ts
+                   if isinstance(t, torch.Tensor))
+
+
+@dataclasses.dataclass
+class _TPState:
+    """A dp row's panelled solve: the layout, the row's devices (lead
+    first), its panels, the lead's (B, M) loop state (a _State or
+    _RState whose per-column fields are None) and the full (B, NT) cost
+    and bound rows on the lead.  ``steps`` counts pivot steps."""
+
+    lay: object
+    devs: tuple
+    panels: list
+    lead: object
+    c: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+    steps: int = 0
+
+    @property
+    def status(self):
+        return self.lead.status
+
+    @property
+    def xb(self):
+        return self.lead.xb
+
+
+def _tp_panels(lay, devs, A_panels, c, lb, ub, in_basis, at_upper):
+    """The row's panels with their slices of the lead's (B, NT) rows."""
+    parts = [lay.split(x, fill) for x, fill in
+             ((c, 0), (lb, 0), (ub, 0), (in_basis, False),
+              (at_upper, False))]
+    panels = []
+    for k, d in enumerate(devs):
+        ck, lbk, ubk, ibk, auk = (x[k].to(d, non_blocking=True)
+                                  for x in parts)
+        A_k, AT_k = A_panels[(k, d)]
+        panels.append(_Panel(k, d, lay.gidx(k, d), ck, lbk, ubk, A_k, AT_k,
+                             ibk, auk, torch.ones_like(ck)))
+    return panels
+
+
+def _panel_E(lay, p):
+    """Panel p's columns of E = [I | -A]: (Mp, width)."""
+    return torch.cat([lay.eye(p.k, p.A.dtype, p.dev), -p.A], dim=1)
+
+
+def _panel_e_matmul(lay, p, v):
+    """Panel p's share of E @ v for its slice ``v`` (B, width): (B, Mp);
+    the shares sum to E @ v."""
+    return lay.place_rows(v[:, :lay.ms], p.k) - v[:, lay.ms:] @ p.A.T
+
+
+def _panel_e_rmatmul(lay, p, y):
+    """Panel p's columns of E^T @ y for the full y (B, Mp): (B, width)."""
+    return torch.cat([lay.rows(y, p.k), -(y @ p.A)], dim=1)
+
+
+def _panel_zn(p):
+    """Nonbasic values on panel p's columns (0 on basics)."""
+    return torch.where(p.in_basis, p.c.new_zeros(()),
+                       _nb_value(p.lb, p.ub, p.at_upper))
+
+
+def _tp_e_zn(ts, devs):
+    """E @ zn over the row's panels (all-reduce of the panels' shares),
+    on ``devs``."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.all_reduce([_panel_e_matmul(ts.lay, p, _panel_zn(p))
+                             for p in ts.panels], devs)
+
+
+def _tp_basis_rows(lay, devs, panels, basis):
+    """(nb, M, Mp) rows E[:, basis[b, k]] for a (nb, M) basis on the lead:
+    each panel contributes the basis columns it owns (zero elsewhere),
+    summed on the lead (exact: one nonzero term per entry)."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    parts = []
+    for p, bas in zip(panels, pmesh.to_all(basis, devs)):
+        loc, own = lay.local(bas, p.k)
+        parts.append(_panel_E(lay, p).T[loc] * own[..., None])
+    return pmesh.all_reduce(parts, devs[:1])[0]
+
+
+def _tp_candidate(p, d, use_bland, tol_dj):
+    """Panel p's entering candidate from its reduced costs ``d``
+    (B, width): (score, global index, local index, packet), the packet's
+    columns (has, inc, lb, ub, val, c, at_upper, gamma) of the candidate,
+    as _devex_entering picks over the whole row."""
+    val = _nb_value(p.lb, p.ub, p.at_upper)
+    elig_inc = (~p.in_basis) & (val < p.ub) & (d < -tol_dj)
+    elig_dec = (~p.in_basis) & (val > p.lb) & (d > tol_dj)
+    eligible = elig_inc | elig_dec
+    neg_inf = d.new_full((), -float("inf"))
+    devex = torch.where(eligible, d * d / p.gamma, neg_inf)
+    bland = torch.where(eligible, -p.gidx.to(d.dtype), neg_inf)
+    score = torch.where(use_bland[:, None], bland, devex)
+    loc = score.argmax(dim=1)
+    packet = torch.stack(
+        [eligible.any(dim=1).to(d.dtype)]
+        + [_take(x, loc).to(d.dtype) for x in
+           (elig_inc, p.lb, p.ub, val, p.c, p.at_upper, p.gamma)], dim=1)
+    return _take(score, loc), p.gidx[loc], loc, packet
+
+
+_PACKET = 8   # scalar columns of a candidate's packet (_tp_candidate)
+
+
+def _tp_enter(ts, cands, cols):
+    """The argmax combine and the entering column's broadcast: from each
+    panel's candidate and its (B, K) column (``cols``), the entering
+    global index, the winner's packet as (has, ent, at_upper, gamma) and
+    its column, on the lead."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    lead = ts.devs[0]
+    winner, q_idx = pmesh.combine_best([s for s, _, _, _ in cands],
+                                       [g for _, g, _, _ in cands], lead)
+    P = pmesh.select_by_owner(
+        [torch.cat([pk, col], dim=1) for (_, _, _, pk), col
+         in zip(cands, cols)], winner, lead)
+    ent = types.SimpleNamespace(inc=P[:, 1] > 0, lb=P[:, 2], ub=P[:, 3],
+                                val=P[:, 4], c=P[:, 5])
+    return q_idx, P[:, 0] > 0, ent, P[:, 6] > 0, P[:, 7], P[:, _PACKET:]
+
+
+def _tp_after_pivot(lay, p, w_r_scaled, sent):
+    """Panel p's own columns after a pivot: in_basis and at_upper at the
+    entering and leaving variables it owns, and the devex weights
+    (_devex_update on its columns)."""
+    (alpha_r, do_pivot, flip, q_idx, leaving, leave_at_upper, gamma_q,
+     q_at_upper) = sent
+    lq, oq = lay.local(q_idx, p.k)
+    ll, ol = lay.local(leaving, p.k)
+    true = torch.ones_like(do_pivot)
+    p.in_basis = _set_at(p.in_basis, lq, true, do_pivot & oq)
+    p.in_basis = _set_at(p.in_basis, ll, ~true, do_pivot & ol)
+    p.at_upper = _set_at(p.at_upper, ll, leave_at_upper, do_pivot & ol)
+    p.at_upper = _set_at(p.at_upper, lq, ~q_at_upper, flip & oq)
+    g_upd = torch.maximum(p.gamma,
+                          w_r_scaled * w_r_scaled * gamma_q[:, None])
+    g_leave = torch.clamp(gamma_q / (alpha_r * alpha_r), min=1.0)
+    g_upd = _set_at(g_upd, ll, g_leave, ol)
+    g_new = torch.where(do_pivot[:, None], g_upd, p.gamma)
+    p.gamma = torch.where(g_new > 1e8, torch.ones_like(g_new), g_new)
+
+
+def _tp_send_pivot(ts, pv, q_idx, gamma_q, q_at_upper):
+    """The lead's pivot decision, on every panel's device: per panel
+    (r_idx, coef, (alpha_r, do_pivot, flip, q_idx, leaving,
+    leave_at_upper, gamma_q, q_at_upper))."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    fields = (pv.r_idx, pv.coef, pv.alpha_r, pv.do_pivot,
+              pv.act & pv.do_flip, q_idx, pv.leaving, pv.leave_at_upper,
+              gamma_q, q_at_upper)
+    per = list(zip(*(pmesh.to_all(x, ts.devs) for x in fields)))
+    return [(f[0], f[1], f[2:]) for f in per]
+
+
+def _tp_lead_state(c, lb, ub, basis, xb):
+    """The lead's (B, M) loop state at a start (per-column fields None)."""
+    B = c.shape[0]
+    zeros = torch.zeros(B, dtype=torch.int32, device=c.device)
+    crossed = (lb > ub).any(dim=1)
+    status = torch.where(crossed, torch.full_like(zeros, INFEASIBLE), zeros)
+    return _State(basis, None, None, None, xb, lb.gather(1, basis),
+                  ub.gather(1, basis), c.gather(1, basis), status, zeros,
+                  zeros.clone(), None)
+
+
+def _tp_initial_state(lay, devs, A_panels, c, lb, ub, basis0, at_upper0):
+    """The panelled start of _initial_state: the masks on the lead, split;
+    the cold tableau is E's panel per LP; a warm basis is gathered from
+    its owning panels and factored once on the lead, and each panel
+    solves for its own columns."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    B = c.shape[0]
+    M = lay.Mp
+    basis, in_basis, at_upper = _basis_masks(c, lb, ub, M, basis0, at_upper0)
+    panels = _tp_panels(lay, devs, A_panels, c, lb, ub, in_basis, at_upper)
+    if basis0 is None:
+        for p in panels:
+            p.W = _panel_E(lay, p).repeat(B, 1, 1)
+    else:
+        shared = basis0.ndim == 1
+        rows = _tp_basis_rows(lay, devs, panels,
+                              basis0.long()[None] if shared else basis)
+        LU, piv = _lu_factor(rows.transpose(1, 2))
+        for p, LU_k, piv_k in zip(panels, pmesh.to_all(LU, devs),
+                                  pmesh.to_all(piv, devs)):
+            E_k = _panel_E(lay, p)
+            if shared:
+                p.W = _lu_solve(LU_k, piv_k, E_k[None]).expand(
+                    B, M, lay.width).clone()
+            else:
+                p.W = _lu_solve(LU_k, piv_k, E_k.expand(B, M, lay.width))
+    # xb = -W @ zn, the panels' shares summed on the lead
+    xb = -pmesh.all_reduce(
+        [torch.bmm(p.W, _panel_zn(p)[:, :, None])[:, :, 0] for p in panels],
+        devs[:1])[0]
+    return _TPState(lay, devs, panels, _tp_lead_state(c, lb, ub, basis, xb),
+                    c, lb, ub)
+
+
+def _tp_step(ts: _TPState) -> _TPState:
+    """One primal pivot of _step over the row's panels (see above)."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    ld, devs = ts.lead, ts.devs
+    TOL_DJ = _tols(ts.c.dtype)[1]
+    running = ld.status == RUNNING
+    viol_lo, viol_up, feasible, cB_eff = _phase_costs(ld)
+    use_bland = ld.stall > BLAND_AFTER
+
+    # each panel prices its own columns and offers its candidate with
+    # the candidate's tableau column
+    cands, cols = [], []
+    for p, cBe, feas, bland in zip(ts.panels, pmesh.to_all(cB_eff, devs),
+                                   pmesh.to_all(feasible, devs),
+                                   pmesh.to_all(use_bland, devs)):
+        d = (torch.where(feas[:, None], p.c, p.c.new_zeros(()))
+             - torch.bmm(cBe[:, None, :], p.W)[:, 0, :])
+        cand = _tp_candidate(p, d, bland, TOL_DJ)
+        cands.append(cand)
+        cols.append(p.W.gather(
+            2, cand[2][:, None, None].expand(-1, p.W.shape[1], 1))[:, :, 0])
+    q_idx, has_entering, ent, q_at_upper, gamma_q, alpha = _tp_enter(
+        ts, cands, cols)
+
+    finish_status = torch.where(feasible, OPTIMAL, INFEASIBLE).to(torch.int32)
+    new_status = torch.where(running & ~has_entering, finish_status,
+                             ld.status)
+    act = running & has_entering
+    pv = _pivot(ld, alpha, q_idx, ent, viol_lo, viol_up, feasible,
+                new_status, act, use_bland)
+
+    # each panel's rank-1 update of its own columns (in place, as _step)
+    for p, (r_idx, coef, sent) in zip(
+            ts.panels, _tp_send_pivot(ts, pv, q_idx, gamma_q, q_at_upper)):
+        w_r = p.W.gather(
+            1, r_idx[:, None, None].expand(-1, 1, p.W.shape[2]))[:, 0, :]
+        w_r_scaled = w_r / sent[0][:, None]
+        p.W.addcmul_(coef[:, :, None], w_r_scaled[:, None, :], value=-1)
+        _tp_after_pivot(ts.lay, p, w_r_scaled, sent)
+    ts.lead = _State(pv.basis, None, None, None, pv.xb, pv.lbB, pv.ubB,
+                     pv.cB, pv.status, pv.stall, pv.iters, None)
+    ts.steps += 1
+    return ts
+
+
+def _tp_final_solutions(ts: _TPState, rows=None):
+    """_final_solutions over the row's panels: the basis rows ``rows``
+    (B, M, M) on the lead (the revised route keeps them), else gathered
+    from their owning panels; E @ zn and E^T y are summed or gathered
+    across panels, so no device holds the whole A."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    lay, ld, devs = ts.lay, ts.lead, ts.devs
+    M = lay.Mp
+    if rows is None:
+        rows = _tp_basis_rows(lay, devs, ts.panels, ld.basis)
+    rhs = -_tp_e_zn(ts, devs[:1])[0]
+    LU, piv = _lu_factor(rows.transpose(1, 2))
+    xb = _lu_solve(LU, piv, rhs[:, :, None])[:, :, 0]
+    y = _lu_solve(LU, piv, ld.cB[:, :, None], adjoint=True)[:, :, 0]
+    zn = lay.join([_panel_zn(p).to(devs[0]) for p in ts.panels])
+    z = zn.scatter(1, ld.basis, xb)
+    obj = (ts.c * z).sum(dim=1)
+    d = lay.join([(p.c - _panel_e_rmatmul(lay, p, y_k)).to(devs[0])
+                  for p, y_k in zip(ts.panels, pmesh.to_all(y, devs))])
+    return obj, z[:, M:], z[:, :M], -y, d[:, M:]
+
+
+def _tp_finish(ts: _TPState, rows=None):
+    """_finish over the row's panels; at_upper joined on the lead."""
+    ld = ts.lead
+    status = torch.where(ld.status == RUNNING, ITLIM, ld.status)
+    obj, x, s, row_dual, col_dual = _tp_final_solutions(ts, rows)
+    at_upper = ts.lay.join([p.at_upper.to(ts.devs[0]) for p in ts.panels])
+    return (status, obj, x, s, row_dual, col_dual, ld.iters, ld.basis,
+            at_upper)
+
+
+def _solve_tableau_tp(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
+                      max_iter):
+    """_solve_tableau_segmented over a dp row's T panels: ``devs`` the
+    row's tp entries (the lead first, where c/lb/ub (B, NT) and the warm
+    start live), ``A_panels`` {(k, device): (A_k, _)} from
+    parallel/mesh.py's a_panels."""
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+
+    ts = _tp_initial_state(lay, devs, A_panels, c, lb, ub, basis0, at_upper0)
+    ts = _run_segmented(lambda *a: _tp_step(a[-1]), None, None, None, None,
+                        ts, max_iter)
+    out = _tp_finish(ts)
+    pmesh.record_split("tableau", ts.panels, ts.steps)
+    return out
+
+
 def _bucket(x: int) -> int:
     """Round a dimension up to a standard size (dummy rows are free,
     dummy columns fixed at zero, so padding never changes the
@@ -658,6 +1063,9 @@ class _PreparedA:
     dev: torch.Tensor    # (Mp, Np) padded, on ``dev.device``
     host: np.ndarray     # (Mp, Np) padded host copy
     devT: torch.Tensor | None = None   # contiguous A^T, made on first use
+    # tp column panels of A (and A^T), by (T, panel, device), made by
+    # parallel/mesh.py's a_panels
+    panels: dict = dataclasses.field(default_factory=dict)
 
     def transposed(self) -> torch.Tensor:
         """The padded A^T, contiguous on the same device (the revised
@@ -839,7 +1247,10 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
                                col_ub, max_iter=max_iter, dtype=dtype,
                                start_basis=start_basis,
                                max_chunk=max_chunk, device=dev, mesh=mesh)
-    prep = _prepare_A(A, dtype, dev)
+    # under a tp split no device holds the whole A: the matrix stays on
+    # the host and each panel receives its own columns
+    tp = mesh is not None and mesh.shape.get("tp", 1) > 1
+    prep = _prepare_A(A, dtype, torch.device("cpu") if tp else dev)
     np_dt = prep.host.dtype
     if max_chunk is None:
         chunk = _auto_chunk(prep.M, prep.N, np_dt.itemsize)
@@ -860,12 +1271,12 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
     M, N, Mp, Np = prep.M, prep.N, prep.Mp, prep.Np
     B = c2.shape[0]
     Bp = _bucket_batch(B, Mp)
-    entries = None
+    rows = None
     if mesh is not None:
         from bensolve_tpu_torch.parallel import mesh as pmesh
 
-        entries = pmesh.shard_entries(mesh, "dp")
-        Bp = pmesh.padded_batch(Bp, len(entries))
+        rows = pmesh.mesh_rows(mesh)
+        Bp = pmesh.padded_batch(Bp, len(rows))
     if max_iter is None:
         max_iter = 50 * (Mp + Np) + 500
     full_c, lb, ub = _pad_batch_inputs(prep, c2, row_lb, row_ub,
@@ -873,13 +1284,22 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
     b0 = u0 = None
     if start_basis is not None:
         b0, u0 = _pad_warm(start_basis, Mp, Mp + Np, B, Bp)
-    if entries is None:
+    if rows is None:
         if b0 is not None:
             b0, u0 = _put(b0, dev), _put(u0, dev)
         out = _solve_tableau_segmented(prep.dev, _put(full_c, dev),
                                        _put(lb, dev), _put(ub, dev), b0, u0,
                                        max_iter)
+    elif tp:
+        lay = pmesh.PanelLayout(Mp, Np, len(rows[0]))
+        A_panels = pmesh.a_panels(prep, lay, rows)
+        out = pmesh.map_shards(
+            rows, (full_c, lb, ub) + _batched_warm(b0, u0),
+            lambda row, c_t, lb_t, ub_t, b_t, u_t: _solve_tableau_tp(
+                lay, row, A_panels, c_t, lb_t, ub_t,
+                *_shard_warm(b0, u0, b_t, u_t, row[0]), max_iter))
     else:
+        entries = [r[0] for r in rows]
         preps = {d: _prepare_A(prep, np_dt, d) for d in dict.fromkeys(entries)}
         out = pmesh.map_shards(
             entries, (full_c, lb, ub) + _batched_warm(b0, u0),

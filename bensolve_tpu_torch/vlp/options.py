@@ -92,9 +92,12 @@ class Options:
     #   the torch.distributed group (parallel/distributed.py)
     mesh_axes: tuple = ()          # multi-device sharding of the LP solves
     #   (parallel/mesh.py): ("dp",) shards the frontier batch over the
-    #   mesh's entries, one thread and one CUDA stream each; ("tp",) and
-    #   ("dp", "tp") are accepted, but a "tp" axis splits nothing: every
-    #   LP stays whole on its dp entry.  Empty: single-device execution.
+    #   mesh's entries, one thread and one CUDA stream each; ("tp",)
+    #   splits every LP's columns (tableau, basis inverse, A) into
+    #   panels over the entries, for ex09-scale single LPs, with one
+    #   exchange between panels per pivot step; ("dp", "tp") does both,
+    #   one thread per dp row driving its tp panels.  Empty:
+    #   single-device execution.
     mesh_devices: int | None = None  # mesh entries (default: the visible
     #   devices of ``device``'s type; more entries repeat them)
     device: str = "cuda"           # torch device every LP tensor lives on

@@ -110,12 +110,23 @@ Phases, one output line (or block) each:
    13's LP and round counts, 32 instances' vertex sets within 1e-7 of
    phase 13's, rates beside phase 13's, peak device memory); phase 13's
    heterogeneous run with the mesh (its groups on entry g % 4, every
-   instance with phase 13's counts and vertex set within 1e-7); a tall
-   random_vlp(q=2, m=25, n=250) over a ("dp", "tp") mesh through the
-   revised simplex, its upper image within 1e-6 of its unsharded run's
-   (cut from phase 8's m=50, n=500, which took 80 s over the mesh); with
-   more than one card, example05 over the cards.  Each check is a gate,
-   counted on the [total] line;
+   instance with phase 13's counts and vertex set within 1e-7); then the
+   "tp" column split (every LP cut into column panels, one per tp entry,
+   parallel/mesh.py): example05 at float64 over ("tp",) x 4, its point
+   sets within 1e-7 of its unsharded run's; BASELINE config #4's P2 LPs
+   (random_vlp(q=5, m=1000, n=2000, seed=7), LP 1011x2006, MESH_TP_B of
+   them, the arrays of bench.make_p2_instances) at float64 through
+   simplex.solve_batch, unsharded and over ("tp",) x 4 in turn, each cut
+   at MESH_TP_STEPS pivot steps (every LP then ITLIM at the basis it
+   reached): statuses equal, objectives within 1e-9 relative, the LPs
+   whose pivot counts or bases differ printed, ms per pivot step of both
+   and each panel's bytes; a
+   tall random_vlp(q=2, m=25, n=250) through the revised simplex over
+   ("tp",) x 4 and over ("dp", "tp") = 2 x 2, each split asserted and its
+   upper image within 1e-6 of its unsharded run's (cut from phase 8's
+   m=50, n=500, which took 80 s over the mesh); with more than one card,
+   example05 over the cards.  Each check is a gate, counted on the
+   [total] line;
 16. the port's bench (python -m bensolve_tpu_torch.bench) in a process
    of its own with every stage, at reduced depth where a stage repeats
    an earlier phase (BENCH_ARGS: p2 one warm round and no HiGHS, many
@@ -212,6 +223,12 @@ MESH_N = 4
 MESH_F64_EXAMPLE = "example05"
 MESH_F32_EXAMPLE = "example05"
 MESH_TALL = (2, 25, 250)
+# config #4's P2 LPs solved by the tableau simplex over ("tp",) x MESH_N
+# (a (8, 1024, 3072) float64 tableau, 201 MB, ~50 MB per panel), cut to
+# MESH_TP_STEPS pivot steps each way: solved to the end they took 33,407
+# steps, 113 s unsharded and 382 s over the mesh on an H100
+MESH_TP_B = 8
+MESH_TP_STEPS = 2000
 # the bench's device stage: make_instances(M, N, B), 16 launches of 256
 BENCH_LPS = (96, 96, 4096)
 # phase 16: bensolve_tpu_torch.bench with every stage, at reduced depth
@@ -1515,11 +1532,12 @@ class _ShardWatch:
             self.shards += len(entries)
             threads, streams = set(), set()
 
-            def seen(dev, *ts):
+            def seen(entry, *ts):
                 threads.add(threading.get_ident())
+                dev = entry[0] if isinstance(entry, tuple) else entry
                 if dev.type == "cuda":
                     streams.add(torch.cuda.current_stream(dev).cuda_stream)
-                return solve(dev, *ts)
+                return solve(entry, *ts)
             out = self.real(entries, batched, seen)
             self.threads = max(self.threads, len(threads))
             self.streams = max(self.streams, len(streams))
@@ -1537,12 +1555,13 @@ class _ShardWatch:
                 f"per solve")
 
 
-def _mesh_example(gate, name, dtype_kw, ref, tol, tag, n_devices):
-    """An example over a "dp" mesh; held to the oracle and, with ``ref``
-    (result, wall), to that unsharded run's upper image."""
+def _mesh_example(gate, name, dtype_kw, ref, tol, tag, n_devices,
+                  axes=("dp",)):
+    """An example over a mesh of ``axes``; held to the oracle and, with
+    ``ref`` (result, wall), to that unsharded run's upper image."""
     with _ShardWatch() as watch:
         r, wall = _solve(name, _options(
-            mesh_axes=("dp",), mesh_devices=n_devices, **dtype_kw))
+            mesh_axes=axes, mesh_devices=n_devices, **dtype_kw))
     gate(r.status.name == "OPTIMAL", f"{tag}: status {r.status}")
     gate(watch.calls > 0, f"{tag}: no sharded solve ran")
     gap = check_support(r, tol)
@@ -1581,13 +1600,115 @@ def _many_against(gate, tag, rs, rs0, picks):
     return worst
 
 
+def _mesh_tp_config4(gate):
+    """BASELINE config #4's P2 LPs at float64 through the tableau simplex
+    (simplex.solve_batch), unsharded and over ("tp",) x MESH_N in the same
+    run, MESH_TP_STEPS pivot steps each: statuses equal, objectives
+    within 1e-9 relative; the LPs whose pivot counts or final bases
+    differ are printed; ms per pivot step of both, and each panel's
+    bytes."""
+    from bensolve_tpu_torch.lp import simplex
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+    from bensolve_tpu_torch.parallel.mesh import make_mesh
+
+    t2, extra_ub = make_p2_instances(MESH_TP_B, **IPM_CONFIG,
+                                     dtype=np.float64, device="cuda")
+    args = (t2.A_lp,) + tuple(t2.build_inputs(extra_ub))
+    M, N = t2.A_lp.shape
+    steps = [0]
+    real = simplex._step
+
+    def counted(*a):
+        steps[0] += 1
+        return real(*a)
+
+    simplex._step = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r0 = simplex.solve_batch(*args, dtype=np.float64, device="cuda",
+                                 max_iter=MESH_TP_STEPS)
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter() - t0
+    finally:
+        simplex._step = real
+    mesh = make_mesh(MESH_N, ("tp",), device="cuda")
+    pmesh.LAST_SPLIT.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = simplex.solve_batch(*args, dtype=np.float64, device="cuda",
+                            max_iter=MESH_TP_STEPS, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = pmesh.LAST_SPLIT.get("tableau")
+    gate(split is not None and split["T"] == MESH_N,
+         f"config #4 over tp: split {split}")
+    gate(np.array_equal(r.status, r0.status),
+         f"config #4 over tp: status {r.status} against {r0.status}")
+    gate(bool(np.isin(r0.status, (simplex.OPTIMAL, simplex.ITLIM)).all()),
+         f"config #4: status {r0.status}")
+    rel = float((np.abs(r.obj - r0.obj) / np.maximum(1.0, np.abs(r0.obj)))
+                .max())
+    gate(rel <= 1e-9, f"config #4 over tp: objectives {rel:.2e} apart")
+    differ = np.flatnonzero((r.iters != r0.iters)
+                            | (r.basis != r0.basis).any(axis=1))
+    sizes = ", ".join(f"{b / 2**20:.1f}" for b in split["panel_bytes"])
+    log(f"[mesh] config #4 P2 LPs (random_vlp({IPM_CONFIG}), LP {M}x{N}) "
+        f"B={MESH_TP_B} float64, tableau simplex cut at {MESH_TP_STEPS} "
+        f"steps: unsharded {wall0:.2f} s, "
+        f"{steps[0]} steps, {1e3 * wall0 / steps[0]:.3f} ms per step; over "
+        f"('tp',) x{MESH_N} {wall:.2f} s, {split['steps']} steps, "
+        f"{1e3 * wall / split['steps']:.3f} ms per step; panels of "
+        f"{sizes} MiB each; statuses {r.status.tolist()} equal; objectives "
+        f"within {rel:.1e} relative (limit 1e-9); pivots "
+        f"{r0.iters.tolist()} unsharded, {r.iters.tolist()} over tp"
+        + (f"; LPs {differ.tolist()} pivot differently" if differ.size
+           else "; every LP with equal pivots and final basis"))
+
+
+def _mesh_tp_tall(gate, axes, r0, wall0):
+    """The tall VLP through the revised simplex over ``axes``: the split
+    asserted (each revised solve cut into the mesh's tp size of panels)
+    and its upper image within 1e-6 of the unsharded run ``r0``."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.lp import revised
+    from bensolve_tpu_torch.parallel import mesh as pmesh
+    from bensolve_tpu_torch.parallel.mesh import make_mesh
+
+    q, m, n = MESH_TALL
+    T = make_mesh(MESH_N, axes, device="cuda").shape["tp"]
+    shape = make_mesh(MESH_N, axes, device="cuda").shape
+    calls = revised.CALLS
+    pmesh.LAST_SPLIT.clear()
+    with _ShardWatch() as watch:
+        r, wall = _solve(None, _options(mesh_axes=axes, mesh_devices=MESH_N),
+                         vlp=examples.random_vlp(q=q, m=m, n=n))
+    split = pmesh.LAST_SPLIT.get("revised")
+    gate(r.status.name == "OPTIMAL", f"tall {axes}: status {r.status}")
+    gate(revised.CALLS > calls, f"tall {axes}: the revised simplex did "
+         f"not run")
+    gate(watch.calls > 0, f"tall {axes}: no sharded solve ran")
+    gate(split is not None and split["T"] == T,
+         f"tall {axes}: split {split}, want {T} panels")
+    img = images_close(r, r0, 1e-6)
+    gate(img <= 1e-6, f"tall {axes}: upper image")
+    gap = check_support(r, 1e-4)
+    log(f"[mesh] random_vlp(q={q}, m={m}, n={n}) float64 primal over "
+        f"make_mesh({MESH_N}, {axes}) {shape}: OPTIMAL in {wall:.2f} s "
+        f"(unsharded: {wall0:.2f} s), {revised.CALLS - calls} revised "
+        f"batched solves, {watch.line()}; last solve {split['T']} panels "
+        f"of {split['panel_bytes'][0] / 2**10:.1f} KiB, {split['steps']} "
+        f"steps; LPs {r.stats.lps} rounds {r.stats.rounds} (unsharded: "
+        f"{r0.stats.lps} / {r0.stats.rounds}); upper images within "
+        f"{img:.1e} (limit 1e-6); support oracle worst gap {gap:.1e} "
+        f"(limit 1e-4)")
+
+
 def phase_mesh():
     """The device mesh (parallel/mesh.py) on the card: MESH_N entries of
     cuda:0, each shard on its own thread and CUDA stream."""
     from bensolve_tpu_torch import examples
     from bensolve_tpu_torch.algs import many
-    from bensolve_tpu_torch.lp import group_simplex as gs
-    from bensolve_tpu_torch.lp import revised
     from bensolve_tpu_torch.parallel.mesh import make_mesh
     from bensolve_tpu_torch.vlp.options import Options
 
@@ -1690,30 +1811,24 @@ def phase_mesh():
         f"and round counts and its vertex set within {dist:.1e} of the "
         f"unsharded one (limit 1e-7)")
 
-    # a tall VLP through the revised simplex over a ("dp", "tp") mesh,
-    # against its unsharded run
+    # the tp column split: example05, config #4's LPs, the tall VLP
+    r_tp = _mesh_example(gate, MESH_F64_EXAMPLE, {}, ref, 1e-4,
+                         f"{MESH_F64_EXAMPLE} float64 tp x{MESH_N}", MESH_N,
+                         axes=("tp",))
+    dist = _point_sets_equal(r_tp, ref[0], 1e-7, "example05 over tp")
+    gate(dist <= 1e-7, "example05 over tp: point sets")
+    gate(_sets_close(r_tp.dual_points, ref[0].dual_points, 1e-7) <= 1e-7,
+         "example05 over tp: lower image points")
+    log(f"[mesh] {MESH_F64_EXAMPLE} float64 over ('tp',) x{MESH_N}: upper "
+        f"and lower image points within {dist:.1e} of the unsharded run's "
+        f"(limit 1e-7)")
+    _mesh_tp_config4(gate)
     q, m, n = MESH_TALL
     r0, twall0 = _solve(None, _options(),
                         vlp=examples.random_vlp(q=q, m=m, n=n))
-    calls = revised.CALLS
-    with _ShardWatch() as watch:
-        r, twall = _solve(None, _options(mesh_axes=("dp", "tp"),
-                                         mesh_devices=MESH_N),
-                          vlp=examples.random_vlp(q=q, m=m, n=n))
-    gate(r.status.name == "OPTIMAL", f"tall: status {r.status}")
-    gate(revised.CALLS > calls, "tall: the revised simplex did not run")
-    gate(watch.calls > 0, "tall: no sharded solve ran")
-    img = images_close(r, r0, 1e-6)
-    gap = check_support(r, 1e-4)
-    shape = make_mesh(MESH_N, ("dp", "tp"), device="cuda").shape
-    log(f"[mesh] random_vlp(q={q}, m={m}, n={n}) float64 primal over "
-        f"make_mesh({MESH_N}, ('dp', 'tp')) {shape}: OPTIMAL in "
-        f"{twall:.2f} s (unsharded: {twall0:.2f} s), "
-        f"{revised.CALLS - calls} revised batched solves, {watch.line()}; "
-        f"LPs {r.stats.lps} rounds {r.stats.rounds} (unsharded: "
-        f"{r0.stats.lps} / {r0.stats.rounds}); upper images within "
-        f"{img:.1e} (limit 1e-6); support oracle worst gap {gap:.1e} "
-        f"(limit 1e-4)")
+    for axes in (("tp",), ("dp", "tp")):
+        _mesh_tp_tall(gate, axes, r0, twall0)
+    log(f"[mesh] {smi_line()}")
 
     if torch.cuda.device_count() > 1:
         k = torch.cuda.device_count()

@@ -12,8 +12,8 @@ each shard on a thread of its own.  Required:
 * against the JAX package's meshed run: the tolerances of
   tests/test_sharding.py and tests/test_many.py.
 
-The "tp" axis is the documented departure: it splits nothing, and every
-LP of a dp row is solved whole on that row's first entry.
+Under a "tp" axis every LP of a dp row is split into column panels over
+the row's entries (tests/test_torch_tp.py holds the panels' own cases).
 """
 
 import os
@@ -154,23 +154,37 @@ def test_2d_mesh_benson_round():
 
 
 @pytest.mark.parametrize("axes", [("tp",), ("dp", "tp")])
-def test_tp_sharded_revised_matches_single_device(axes):
+def test_tp_sharded_revised_matches_single_device(axes, monkeypatch):
+    """The revised route over meshes of 2 and 8 entries: every LP split
+    into as many panels as the mesh's tp axis holds, with the unsplit
+    port's pivots and the JAX package's values."""
+    panels = []
+    real = pmesh.record_split
+    monkeypatch.setattr(pmesh, "record_split", lambda route, ps, steps: (
+        panels.append((route, len(ps))), real(route, ps, steps)))
     args = _tall_instances(8, 64, 4)
-    calls = revised.CALLS
     plain = revised.solve_batch_revised(*args, device="cpu")
-    got = revised.solve_batch_revised(*args, device="cpu",
-                                      mesh=cpu_mesh(axes))
-    assert revised.CALLS > calls + 1
-    assert_same_lps(plain, got)
-    ref = jrevised.solve_batch_revised(*args,
-                                       mesh=jmesh.make_mesh(8, axes))
-    np.testing.assert_array_equal(ref.status, got.status)
-    ok = ref.status == tsx.OPTIMAL
-    assert ok.any()
-    np.testing.assert_allclose(got.obj[ok], ref.obj[ok], rtol=1e-8,
-                               atol=1e-8)
-    np.testing.assert_allclose(got.row_dual[ok], ref.row_dual[ok],
-                               rtol=1e-7, atol=1e-9)
+    for n in (2, 8):
+        m = cpu_mesh(axes, n)
+        T = m.shape["tp"]
+        panels.clear()
+        calls = revised.CALLS
+        got = revised.solve_batch_revised(*args, device="cpu", mesh=m)
+        assert revised.CALLS > calls
+        if n == 8:
+            assert T > 1
+        assert panels == ([("revised", T)] * len(pmesh.mesh_rows(m))
+                          if T > 1 else [])
+        assert_same_lps(plain, got)
+        ref = jrevised.solve_batch_revised(*args,
+                                           mesh=jmesh.make_mesh(n, axes))
+        np.testing.assert_array_equal(ref.status, got.status)
+        ok = ref.status == tsx.OPTIMAL
+        assert ok.any()
+        np.testing.assert_allclose(got.obj[ok], ref.obj[ok], rtol=1e-8,
+                                   atol=1e-8)
+        np.testing.assert_allclose(got.row_dual[ok], ref.row_dual[ok],
+                                   rtol=1e-7, atol=1e-9)
 
 
 def test_mesh_axes_end_to_end_solve():
@@ -193,16 +207,54 @@ def test_mesh_axes_end_to_end_solve():
                                                  ref.stats.rounds)
 
 
-def test_tp_departure_layout(monkeypatch):
-    """In place of JAX's memory-split witness: under ("dp", "tp") every
-    LP is solved whole on one dp entry (the first of its row), the
-    shards are contiguous, equal and in order, and the padded batch
-    follows the JAX rule."""
+def test_tp_sharding_distributes_state(monkeypatch):
+    """Memory-distribution witness (the JAX package's test of the same
+    name): under an 8-way tp mesh each entry holds 1/8 of the columns:
+    A's panel (Mp, Np/8), the tableau's (B, M, NT/8), B^-1's and the
+    basis rows' (B, M, Mp/8), A^T's (Np/8, Mp), each on its own entry;
+    no device holds the whole A."""
+    seen = {}
+    real = pmesh.record_split
+    monkeypatch.setattr(pmesh, "record_split", lambda route, ps, steps: (
+        seen.__setitem__(route, ps), real(route, ps, steps)))
+    m = cpu_mesh(("tp",))
+    rng = np.random.default_rng(4)
+    B, M, N = 8, 24, 40
+    A = rng.standard_normal((M, N))
+    args = (A, rng.standard_normal((B, N)), np.full((B, M), -np.inf),
+            rng.random((B, M)) + 1.0, np.zeros((B, N)), np.full((B, N), 3.0))
+    tsx.solve_batch(*args, device="cpu", mesh=m)
+    tall = _tall_instances(8, 64, 2)
+    revised.solve_batch_revised(*tall, device="cpu", mesh=m)
+    tab, rev = seen["tableau"], seen["revised"]
+    assert [p.k for p in tab] == list(range(8))
+    assert all(p.dev == d for p, d in zip(tab, m.devices.flat))
+    assert {p.A.shape for p in tab} == {(M, N // 8)}
+    assert {p.W.shape for p in tab} == {(B, M, (M + N) // 8)}
+    assert {p.A.shape for p in rev} == {(8, 64 // 8)}
+    assert {p.AT.shape for p in rev} == {(64 // 8, 8)}
+    assert {p.Binv.shape for p in rev} == {p.Brows.shape for p in rev} == {
+        (B, 8, 8 // 8)}
+    assert all(p.Binv is None for p in tab) and all(p.W is None for p in rev)
+    for ps in (tab, rev):
+        total = sum(p.nbytes for p in ps)
+        assert {p.nbytes for p in ps} == {total // 8}
+    # the shared matrix stays on the host: the tp solve uploads panels
+    prep = tsx._prepare_A(A, np.float64, "cpu")
+    assert sorted(k for k in prep.panels) == [(8, k, "cpu")
+                                             for k in range(8)]
+
+
+def test_mesh_rows_and_padded_batch(monkeypatch):
+    """Under ("dp", "tp") the batch is cut into contiguous, equal shards,
+    one per dp row (led by the row's first entry), in order, and the
+    padded batch follows the JAX rule."""
     m = cpu_mesh(("dp", "tp"))
     assert pmesh.shard_entries(m, "dp") == list(m.devices[:, 0])
     assert pmesh.shard_entries(m, "tp") == list(m.devices[0, :])
     assert pmesh.shard_entries(cpu_mesh(("tp",)), "dp") == [
         torch.device("cpu")]
+    assert pmesh.mesh_rows(m) == [tuple(r) for r in m.devices]
     for Bp, n in ((8, 4), (2, 8), (16, 8), (64, 1)):
         want = Bp
         while want % n:          # simplex.py:880-883 of the JAX package
@@ -211,13 +263,13 @@ def test_tp_departure_layout(monkeypatch):
     assert pmesh.padded_batch(8, 3) == 9
 
     seen = []
-    real = tsx._solve_tableau_segmented
+    real = tsx._solve_tableau_tp
 
-    def record(A, c, *a):
-        seen.append((threading.get_ident(), c.numpy().copy()))
-        return real(A, c, *a)
+    def record(lay, row, A_panels, c, *a):
+        seen.append((threading.get_ident(), row, c.numpy().copy()))
+        return real(lay, row, A_panels, c, *a)
 
-    monkeypatch.setattr(tsx, "_solve_tableau_segmented", record)
+    monkeypatch.setattr(tsx, "_solve_tableau_tp", record)
     rng = np.random.default_rng(4)
     B, M, N = 20, 5, 6
     A = rng.standard_normal((M, N))
@@ -226,15 +278,16 @@ def test_tp_departure_layout(monkeypatch):
             np.zeros((B, N)), np.full((B, N), 3.0))
     got = tsx.solve_batch(*args, device="cpu", mesh=m)
     assert len(seen) == 4                      # the dp size
-    assert {s[1].shape[0] for s in seen} == {8}  # Bp = 32 in 4 shards
+    assert {s[2].shape[0] for s in seen} == {8}  # Bp = 32 in 4 shards
+    assert {s[1] for s in seen} == set(pmesh.mesh_rows(m))
     prep = tsx._prepare_A(A, np.float64, "cpu")
     full_c, _, _ = tsx._pad_batch_inputs(prep, c, *args[2:], 32, np.float64)
     blocks = [full_c[8 * k:8 * k + 8] for k in range(4)]
     found = sorted(next(k for k, b in enumerate(blocks)
-                        if np.array_equal(b, s[1])) for s in seen)
+                        if np.array_equal(b, s[2])) for s in seen)
     assert found == [0, 1, 2, 3]
     assert got.status.shape == (B,)
-    monkeypatch.setattr(tsx, "_solve_tableau_segmented", real)
+    monkeypatch.setattr(tsx, "_solve_tableau_tp", real)
     assert_same_lps(tsx.solve_batch(*args, device="cpu"), got)
 
 

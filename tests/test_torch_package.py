@@ -158,3 +158,49 @@ def test_engine_builds_from_the_ports_own_source(tmp_path, monkeypatch):
     monkeypatch.delenv("BENSOLVE_TPU_NO_NATIVE", raising=False)
     assert native.lib() is not None
     assert len(cmds) == 1 and src in cmds[0]
+
+
+# The port's host modules that copy the JAX package's, and every line in
+# which each copy differs from its source once "bensolve_tpu_torch" reads
+# "bensolve_tpu" (difflib.ndiff: "- " the source's, "+ " the copy's).
+HOST_COPIES = {
+    "vlp/problem.py": [],
+    "vlp/reader.py": [],
+    "poly/polytope.py": [],
+    "algs/solution.py": [],
+    "io/writers.py": [],
+    "native/poly_engine.cpp": [],
+    "io/checkpoint.py": [
+        "+ The keys are those of ``bensolve_tpu/io/checkpoint.py``, which "
+        "this",
+        "+ module ports: a snapshot written by either package resumes in the",
+        "+ other."],
+    "vlp/writer.py": [
+        "- comparable with the shipped examples.",
+        "+ comparable with the shipped examples.  The port of",
+        "+ ``bensolve_tpu/vlp/writer.py`` (host numpy code, unchanged)."],
+    "io/plot.py": [
+        "- records per-axis scaling.",
+        "+ records per-axis scaling.  The port of ``bensolve_tpu/io/plot.py``",
+        "+ (host numpy code, unchanged).",
+        "+ ",
+        "+ import os",
+        "-     import os",
+        "- "],
+}
+
+
+@pytest.mark.parametrize("path", sorted(HOST_COPIES))
+def test_host_copies_hold_to_their_source(path):
+    """Drift guard: a host module the port copies from the JAX package
+    differs from its source only in the import rename and the lines
+    listed in HOST_COPIES, so a fix to either side shows up here."""
+    import difflib
+
+    with open(os.path.join(ROOT, "bensolve_tpu_torch", path)) as f:
+        port = f.read().replace("bensolve_tpu_torch", "bensolve_tpu")
+    with open(os.path.join(ROOT, "bensolve_tpu", path)) as f:
+        src = f.read()
+    diff = [ln for ln in difflib.ndiff(src.splitlines(), port.splitlines())
+            if ln[:2] in ("+ ", "- ")]
+    assert diff == HOST_COPIES[path]
