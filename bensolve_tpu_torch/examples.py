@@ -2,8 +2,9 @@
 bensolve_tpu/examples.py, so the port can build them without JAX).
 
 example07 and example09 are data-driven in the reference (their raw
-matrices ship only inside ex07.vlp / ex09.vlp), so this copy leaves
-them out; read those files with ``bensolve_tpu_torch.read_vlp``.
+matrices ship only inside ex07.vlp / ex09.vlp); their generators load
+the .vlp files instead, from ``ex_dir``.  ``ALL`` holds the generators
+that need no file.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 import numpy as np
 
 from bensolve_tpu_torch.vlp.problem import VLPProblem
+from bensolve_tpu_torch.vlp.reader import read_vlp
+
+REFERENCE_EX = "/root/reference/ex"
 
 
 def example01() -> VLPProblem:
@@ -62,6 +66,12 @@ def example06() -> VLPProblem:
         opt_dir=-1)
 
 
+def example07(ex_dir: str = REFERENCE_EX) -> VLPProblem:
+    """Large radiotherapy MOLP (Shao-Ehrgott); data ships only inside
+    ex07.vlp.  Recommended flags: -e 0.05 (ex/example07.m:9)."""
+    return read_vlp(f"{ex_dir}/ex07.vlp")
+
+
 def example08() -> VLPProblem:
     """Unbounded but not totally unbounded; solution has points AND
     directions (ex/example08.m)."""
@@ -70,6 +80,12 @@ def example08() -> VLPProblem:
         P=[[1, 0], [0, 1]],
         Y=np.array([[-1, 1.5], [3, -1]]).T,
         c=[0, 1])
+
+
+def example09(ex_dir: str = REFERENCE_EX) -> VLPProblem:
+    """Huge VLP (Hamel-Loehne-Rudloff Ex. 6.6); data ships only inside
+    ex09.vlp.  Recommended flags: -e 1e-2 (ex/example09.m:10)."""
+    return read_vlp(f"{ex_dir}/ex09.vlp")
 
 
 def example10(q: int = 3, m: int = 2) -> VLPProblem:

@@ -133,7 +133,25 @@ Phases, one output line (or block) each:
    at 1,000 instances, tall random_vlp(q=2, m=25, n=250)): it exits 0,
    its result line parses and holds every key of the repo's bench.py
    line, and its device stage launched the cluster kernel;
-17. the result lines.
+17. the large-example harness (bensolve_tpu_torch.slow_runner, with
+   tests/witness_large_shapes.py): example10 through the runner at its
+   defaults (OPTIMAL with the JAX package's recorded counts, 3,060 LPs,
+   15 rounds, 1,368 points, 3 directions, its oracle verdict pass@1e-4,
+   and tests/test_e2e_large.py's criteria: more than 500 points, 3
+   directions, 16 samples at 1e-4); the ex07 flags (float32, eps 0.05,
+   lp_ipm_min 2000) end to end on random_vlp(2, 20, 2000, seed=7), cut
+   from ex07's shape, random_vlp(3, 1211, 1143), which took 778 s
+   (OPTIMAL, oracle at 0.05); one phase-2 round of ex09's shape, B = 8 LPs
+   4615x36943 of random_vlp(3, 4608, 36939, seed=7) at float32 under
+   CONFIGS["ex09"]'s environment (every LP called OPTIMAL held to its
+   float64 certificates at 1e-2, ms per iteration split into the S build,
+   the Cholesky pair and the solves beside the S build's bound, peak
+   device memory).  No LP goes to host HiGHS: the ex07 flow runs with the
+   fallback off (its ITLIM LPs go to the IPM's rescue pass and float64
+   simplex fallback on the device; capped at 0 they stay ITLIM and the
+   Benson loop gives up on them) and the ex09 round with it capped at 0;
+   the LPs bound for it are printed;
+18. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -237,6 +255,20 @@ BENCH_LPS = (96, 96, 4096)
 BENCH_ARGS = ("--p2-warm", "1", "--highs-k", "0", "--many", "1000",
               "--tall", "2", "25", "250")
 BENCH_TIMEOUT_S = 600
+# phase 17: example10 through the runner, held to the JAX package's
+# record of it (SLOW_RESULTS.md); the ex07 flow's random VLP and the
+# ex09-shape round (q, m, n, B), both with seed 7
+RUNNER_EX10 = dict(status="OPTIMAL", lps=3060, rounds=15, points=1368,
+                   directions=3, support="pass@0.0001")
+# the ex07 flow at its full shape, random_vlp(3, 1211, 1143), took 778 s
+# on an H100 (tests/witness_large_shapes.py; PERF.md), random_vlp(3, 20,
+# 2000) 234 s and random_vlp(3, 300, 1700) more than 330 s: three
+# objectives need thousands of LPs at eps 0.05, and the IPM's stragglers
+# go to its rescue pass and float64 simplex fallback.  Two objectives
+# keep the flags, the environment and the interior-point route (LP
+# 25x2003, M + N >= 2000) at 74 LPs.
+LARGE_EX07 = (2, 20, 2000)
+LARGE_EX09 = (3, 4608, 36939, 8)
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1873,6 +1905,73 @@ def phase_bench():
     return line
 
 
+def _witness():
+    """tests/witness_large_shapes.py, loaded from its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "witness_large_shapes.py")
+    spec = importlib.util.spec_from_file_location("witness_large_shapes",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_large():
+    """The runner on example10, the ex07 flow at LARGE_EX07 and one
+    ex09-shape round (tests/witness_large_shapes.py's functions)."""
+    from bensolve_tpu_torch import slow_runner
+
+    w = _witness()
+    with tempfile.TemporaryDirectory() as ckpt:
+        row, r = slow_runner.solve_one("ex10", "cuda", ckpt_dir=ckpt)
+    got = {k: row[k] for k in RUNNER_EX10}
+    if got != RUNNER_EX10:
+        raise AssertionError(f"runner ex10: {got}, recorded {RUNNER_EX10}")
+    if not (len(r.primal_points) > 500 and len(r.primal_directions) == 3):
+        raise AssertionError("runner ex10: test_e2e_large's counts")
+    gap = check_support(r, tol=1e-4, n_samples=16)
+    log(f"[large] runner ex10 ({row['card']}): {row['status']} in "
+        f"{row['wall_s']:.2f} s, {row['lps']} LPs, {row['rounds']} rounds, "
+        f"{row['points']} points, {row['directions']} directions, "
+        f"{row['support']} (the JAX package's recorded run: {RUNNER_EX10}); "
+        f"test_e2e_large's 16 samples within {gap:.1e} (limit 1e-4)")
+
+    q, m, n = LARGE_EX07
+    if LARGE_EX07 != w.EX07:
+        log(f"[large] ex07 flow cut from random_vlp{w.EX07} to "
+            f"random_vlp{LARGE_EX07} (same flags, environment and route); "
+            f"the full shape is recorded by tests/witness_large_shapes.py")
+    with tempfile.TemporaryDirectory() as ckpt:
+        rec, _ = w.ex07_shape("cuda", q, m, n, host="off", ckpt_dir=ckpt)
+    log(f"[large] ex07 flow: {w.ex07_line(rec)}")
+    if not w.ex07_ok(rec):
+        raise AssertionError(f"ex07 flow: {rec['status']}, "
+                             f"{rec['support']}")
+    if rec["ipm_calls"] == 0:
+        raise AssertionError("ex07 flow: the IPM route was not taken")
+
+    q, m, n, B = LARGE_EX09
+    rec, _ = w.ex09_round("cuda", q, m, n, B, clock=_IPMClock(split=True))
+    log(f"[large] ex09 shape: {w.ex09_line(rec)}")
+    M, Nc, width = rec["lp_shape"][0], rec["Nc"], rec["chunk_width"]
+    s_bound = w.s_bound_ms(rec, PEAK_FLOPS["float32"])
+    bound, bound_by, _ = _iteration_bound(M, Nc, width, "float32")
+    done, _, _ = _iteration_bound(M, Nc, width, "float32", needed=False)
+    ms = rec["ms_per_iteration"]
+    log(f"[large] ex09 shape: {ms:.2f} ms per iteration at B={width}; S "
+        f"build bound {s_bound:.2f} ms ({s_bound / width:.2f} per LP: 2 M^2 "
+        f"Nc flops at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s), S build "
+        f"measured {rec['parts_ms'].get('S build', float('nan')):.2f} ms; "
+        f"iteration bound of the work needed {bound:.2f} ms ({bound_by}) = "
+        f"{bound / ms:.3f} of it, of the work done {done:.2f} ms = "
+        f"{done / ms:.3f}; {smi_line()}")
+    if not w.ex09_ok(rec):
+        raise AssertionError(f"ex09 shape: LPs {rec['cert_failed']} fail "
+                             f"their certificates")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1906,6 +2005,7 @@ def main() -> int:
     _timed("14", phase_aux)
     _timed("15", phase_mesh)
     bench_line = _timed("16", phase_bench)
+    _timed("17", phase_large)
     _log_total(t_start)
     log(smi_line())
     common = {"route": "cuda", "source": KERNEL_SOURCE,
@@ -1947,7 +2047,7 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,
           "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
-          "15": phase_mesh, "16": phase_bench}
+          "15": phase_mesh, "16": phase_bench, "17": phase_large}
 # seconds per phase, and the mesh phase's passed gates, for [total]
 _PHASE_S = {}
 

@@ -37,7 +37,8 @@ def test_import_leaves_jax_out():
             "bensolve_tpu_torch.parallel.mesh, "
             "bensolve_tpu_torch.io.checkpoint, bensolve_tpu_torch.io.plot, "
             "bensolve_tpu_torch.vlp.writer, bensolve_tpu_torch.bench, "
-            "bensolve_tpu_torch.scale_many; "
+            "bensolve_tpu_torch.scale_many, bensolve_tpu_torch.slow_runner, "
+            "bensolve_tpu_torch.ex09_probe; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'bensolve_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -164,6 +165,34 @@ def test_engine_builds_from_the_ports_own_source(tmp_path, monkeypatch):
 # which each copy differs from its source once "bensolve_tpu_torch" reads
 # "bensolve_tpu" (difflib.ndiff: "- " the source's, "+ " the copy's).
 HOST_COPIES = {
+    "examples.py": [
+        '- """The reference example problems as Python generators — the '
+        'port of',
+        '+ """The reference example problems as Python generators (a copy of',
+        '+ bensolve_tpu/examples.py, so the port can build them without JAX).',
+        '- the MATLAB scripts ex/example01.m .. example11.m, which form the',
+        "- project's acceptance behavior matrix (SURVEY.md section 4).",
+        '- the .vlp files instead.',
+        '+ the .vlp files instead, from ``ex_dir``.  ``ALL`` holds the '
+        'generators',
+        '+ that need no file.',
+        '- def example07() -> VLPProblem:',
+        '+ def example07(ex_dir: str = REFERENCE_EX) -> VLPProblem:',
+        '-     return read_vlp(f"{REFERENCE_EX}/ex07.vlp")',
+        '+     return read_vlp(f"{ex_dir}/ex07.vlp")',
+        '- def example09() -> VLPProblem:',
+        '+ def example09(ex_dir: str = REFERENCE_EX) -> VLPProblem:',
+        '-     return read_vlp(f"{REFERENCE_EX}/ex09.vlp")',
+        '+     return read_vlp(f"{ex_dir}/ex09.vlp")',
+        '- ALL = {f"example{i:02d}": fn for i, fn in enumerate(',
+        '+ ALL = {fn.__name__: fn for fn in',
+        '-     [example01, example02, example03, example04, example05, '
+        'example06,',
+        '+        [example01, example02, example03, example04, example05, '
+        'example06,',
+        '-      example07, example08, example09, example10, example11], '
+        'start=1)}',
+        '+         example08, example10, example11]}'],
     "vlp/problem.py": [],
     "vlp/reader.py": [],
     "poly/polytope.py": [],
