@@ -150,8 +150,21 @@ Phases, one output line (or block) each:
    fallback off (its ITLIM LPs go to the IPM's rescue pass and float64
    simplex fallback on the device; capped at 0 they stay ITLIM and the
    Benson loop gives up on them) and the ex09 round with it capped at 0;
-   the LPs bound for it are printed;
-18. the result lines.
+   the LPs bound for it are printed; the ex07 flow's IPM seconds split
+   into four disjoint terms (the top-level calls, the rescue IPM, the
+   simplex nested in the rescue pass, the simplex after it), with their
+   LPs and those the rescue IPM resolved itself;
+18. the driver entry (bensolve_tpu_torch.graft_entry, the port of the
+   repo-root __graft_entry__.py): entry() on the card, timed by CUDA
+   events, against the same solve on the CPU (status, iterations and
+   basis equal, objective within 1e-5 relative); dryrun_multichip(n)
+   for n = 1, 2, 4, 8 over entries of cuda:0 (("dp", "tp") for n >= 4),
+   every sharded solve of its three steps against the port's own
+   unsharded solve of the same batch on the card (status, iterations
+   and basis equal); the kernel's launch counts unchanged over the
+   phase (the path runs the torch tableau loop); per n the mesh's shape
+   and wall on a {"graft": ...} line before the kernels line;
+19. the result lines.
 
 The second-to-last line is one JSON object with the kernel's two
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -160,7 +173,8 @@ large VLP of phase 4 for the global one; launches_dual_f32 in phase 7;
 launches_bench_device in phase 16's device stage; max |obj kernel -
 plain|, kernel, plain and bound times at example10's P2 shape, cold,
 and the kernel's time warm; the same at the bench's device shape under
-bench_shape); the last line is {"ok": true, "device": {...}}.  Any
+bench_shape); the line before it is phase 18's {"graft": ...}; the
+last line is {"ok": true, "device": {...}}.  Any
 failed phase raises and exits non-zero before those lines.  Without a
 CUDA device, or without the package beside this
 script, it exits non-zero and prints no result.
@@ -269,6 +283,10 @@ RUNNER_EX10 = dict(status="OPTIMAL", lps=3060, rounds=15, points=1368,
 # 25x2003, M + N >= 2000) at 74 LPs.
 LARGE_EX07 = (2, 20, 2000)
 LARGE_EX09 = (3, 4608, 36939, 8)
+# phase 18: the mesh sizes of graft_entry.dryrun_multichip (the JAX
+# package's records, MULTICHIP_r0*.json, ran n = 8)
+GRAFT_NS = (1, 2, 4, 8)
+GRAFT_OBJ_RTOL = 1e-5
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1972,6 +1990,72 @@ def phase_large():
                              f"their certificates")
 
 
+def phase_graft():
+    """bensolve_tpu_torch.graft_entry on the card: entry() against the
+    CPU, and dryrun_multichip(n) for GRAFT_NS with every sharded solve
+    held to the unsharded one; the record of the {"graft": ...} line."""
+    from bensolve_tpu_torch import graft_entry as ge
+
+    gate = _Gates("graft")
+    before = _launches()
+    fn, args = ge.entry("cuda")
+    ms = []
+    for _ in range(2):    # the first call includes the warm-up
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        out = fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+    got = [o.cpu().numpy() for o in out]
+    cfn, cargs = ge.entry("cpu")
+    ref = [o.numpy() for o in cfn(*cargs)]
+    for k, i in (("status", 0), ("iters", 6), ("basis", 7)):
+        gate(np.array_equal(got[i], ref[i]),
+             f"entry: {k} on the card {got[i].tolist()}, on the CPU "
+             f"{ref[i].tolist()}")
+    rel = float(np.max(np.abs(got[1] - ref[1]) / (1 + np.abs(ref[1]))))
+    gate(rel <= GRAFT_OBJ_RTOL, f"entry: objectives {rel:.1e} apart")
+    log(f"[graft] entry(): {ref[0].size} LPs {tuple(args[0].shape)} f32, "
+        f"statuses {got[0].tolist()}, iterations {got[6].tolist()}, equal "
+        f"to the CPU's with the bases, objectives within {rel:.1e}; "
+        f"{ms[0]:.2f} ms first call, {ms[1]:.2f} ms second (CUDA events)")
+    runs = []
+    for n in GRAFT_NS:
+        t0 = time.perf_counter()
+        rec = ge.dryrun_multichip(n, "cuda")
+        wall = time.perf_counter() - t0
+        batches = ge.step_inputs(rec["dp"])
+        for step in rec["steps"]:
+            one = ge.solve_unsharded(*batches[step["step"]], device="cuda")
+            for k, i in (("status", 0), ("iters", 6), ("basis", 7)):
+                gate(np.array_equal(step[k], one[i]),
+                     f"n={n} {step['step']}: {k} differs from the "
+                     f"unsharded solve")
+        steps = {s["step"]: dict(
+            lps=int(s["status"].size), wall_s=s["wall_s"],
+            statuses={int(k): int(v) for k, v in zip(
+                *np.unique(s["status"], return_counts=True))},
+            iters_max=int(s["iters"].max())) for s in rec["steps"]}
+        runs.append(dict(n=n, shape=rec["shape"], entries=rec["entries"],
+                         wall_s=wall, steps=steps))
+        log(f"[graft] dryrun_multichip({n}) over {rec['shape']} of "
+            f"{sorted(set(rec['entries']))}: {wall:.2f} s; "
+            + "; ".join(f"{k} {v['lps']} LPs {v['statuses']} (iterations "
+                        f"<= {v['iters_max']}) {v['wall_s']:.3f} s"
+                        for k, v in steps.items())
+            + "; each equal to the unsharded solve on the card")
+    after = _launches()
+    gate(after == before, f"kernel launches moved on the graft path: "
+         f"{before} -> {after}")
+    log(f"[graft] {gate.passed} gates passed; kernel launches over the "
+        f"phase: {before} -> {after}; {smi_line()}")
+    return dict(entry_ms=ms, entry_obj_rel=rel, launches=dict(
+        before=before, after=after), dryrun=runs, gates=gate.passed)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2006,8 +2090,10 @@ def main() -> int:
     _timed("15", phase_mesh)
     bench_line = _timed("16", phase_bench)
     _timed("17", phase_large)
+    graft = _timed("18", phase_graft)
     _log_total(t_start)
     log(smi_line())
+    log(json.dumps({"graft": graft}))
     common = {"route": "cuda", "source": KERNEL_SOURCE,
               "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
               "bound_ms": ex10["bound_ms"], "bound_by": ex10["bound_by"],
@@ -2047,7 +2133,8 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,
           "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
-          "15": phase_mesh, "16": phase_bench, "17": phase_large}
+          "15": phase_mesh, "16": phase_bench, "17": phase_large,
+          "18": phase_graft}
 # seconds per phase, and the mesh phase's passed gates, for [total]
 _PHASE_S = {}
 

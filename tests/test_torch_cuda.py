@@ -7,7 +7,9 @@ kernel's route to the interior-point method; a per-instance-matrix LP
 batch and a 64-instance solve_many give on the card what they give on
 the CPU; a "dp" mesh of streams on the card (and over the cards, where
 there are several) gives the one-device result; the bench's device
-stage launches the kernel.
+stage launches the kernel; the driver entry (graft_entry) gives on the
+card what it gives on the CPU, and its dry run over ("dp", "tp") gives
+the unsharded result.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -395,3 +397,30 @@ def test_bench_device_stage_launches_the_kernel(cuda_device):
     out = bench.run_device("cuda", 96, 96, 256, reps=1)
     assert out["launches"] == {"cluster": 2, "global": 0}
     bench.run_serial(out["inputs"], 8, out["obj"])
+
+
+@pytest.mark.cuda
+def test_graft_entry_on_card_matches_cpu(cuda_device):
+    """bensolve_tpu_torch.graft_entry on cuda:0: entry() gives the CPU's
+    status, iterations and basis, and dryrun_multichip(4) over ("dp",
+    "tp") = 2 x 2 entries of the card gives, in every step, what the
+    port's unsharded solve of the same batch gives on the card."""
+    from bensolve_tpu_torch import graft_entry as ge
+
+    fn, args = ge.entry("cuda")
+    assert all(a.device.type == "cuda" for a in args)
+    got = [o.cpu().numpy() for o in fn(*args)]
+    cfn, cargs = ge.entry("cpu")
+    ref = [o.numpy() for o in cfn(*cargs)]
+    for i in (0, 6, 7):
+        np.testing.assert_array_equal(got[i], ref[i])
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    before = (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL)
+    rec = ge.dryrun_multichip(4, "cuda")
+    assert rec["shape"] == {"dp": 2, "tp": 2}
+    batches = ge.step_inputs(rec["dp"])
+    for step in rec["steps"]:
+        one = ge.solve_unsharded(*batches[step["step"]], device="cuda")
+        for k, i in (("status", 0), ("iters", 6), ("basis", 7)):
+            np.testing.assert_array_equal(step[k], one[i], err_msg=k)
+    assert (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL) == before

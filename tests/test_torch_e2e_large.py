@@ -267,6 +267,64 @@ def test_host_cap_zero_builds_no_sparse_matrix(monkeypatch):
     assert tipm.LAST["host_fallback"] == 0
 
 
+def test_witness_split_is_disjoint_and_fills_the_ipm_time(monkeypatch):
+    """tests/witness_large_shapes.py's HostBound on stubbed solvers and a
+    fake clock: a top-level IPM call makes a rescue call, the rescue call
+    hands 2 of its 4 LPs to the simplex, and the top-level call then
+    hands 1 LP to the simplex itself.  Each of the four terms gets its
+    own seconds and LPs, and together they fill the call's wall."""
+    from bensolve_tpu_torch.lp import simplex as tsx
+    from tests import witness_large_shapes as w
+
+    now = [0.0]
+
+    def tick(s):
+        now[0] += s
+
+    def result(status):
+        z = np.zeros((len(status), 1))
+        return tsx.LPResult(np.asarray(status), z[:, 0], z, z, z, z,
+                            np.zeros(len(status), int))
+
+    def simplex(A, c, *a, **kw):
+        tick(5.0 if np.atleast_2d(c).shape[0] == 2 else 7.0)
+        return result([tsx.OPTIMAL] * np.atleast_2d(c).shape[0])
+
+    def ipm(A, c, *a, _rescue=False, **kw):
+        if _rescue:                       # (b) 2 + 1, (c) 5
+            tick(2.0)
+            tsx.solve_batch(A, c[:2])
+            tick(1.0)
+            return result([tsx.OPTIMAL] * 4)
+        tick(3.0)                         # (a) 3 + 1 + 4
+        tipm.solve_batch_ipm(A, c[:4], _rescue=True)
+        tick(1.0)
+        tsx.solve_batch(A, c[:1])         # (d) 7
+        tick(4.0)
+        return result([tsx.OPTIMAL] * 6)
+
+    monkeypatch.setattr(tipm, "solve_batch_ipm", ipm)
+    monkeypatch.setattr(tsx, "solve_batch", simplex)
+    with w.HostBound("cpu", clock=lambda: now[0]) as hb:
+        tipm.solve_batch_ipm(np.eye(2), np.zeros((6, 2)))
+    assert tipm.solve_batch_ipm is ipm and tsx.solve_batch is simplex
+    rec = hb.record()
+    assert {k: rec[k] for k in w.SPLIT} == dict(
+        top_level_s=8.0, rescue_ipm_s=3.0, simplex_in_rescue_s=5.0,
+        simplex_top_s=7.0)
+    assert rec["ipm_s"] == rec["split_sum_s"] == 23.0
+    assert rec["split_gap"] == 0.0
+    assert rec["rescue_s"] == 8.0 and rec["simplex_s"] == 12.0
+    assert (rec["ipm_lps"], rec["rescued"], rec["rescue_resolved"]) == (6, 4,
+                                                                       2)
+    assert (rec["simplex_in_rescue"], rec["simplex_top"],
+            rec["simplex_fallback"]) == (2, 1, 3)
+    assert rec["per_call"] == [dict(lps=6, rescued=4, rescue_resolved=2,
+                                    simplex_in_rescue=2, simplex_top=1,
+                                    seconds=23.0)]
+    assert "IPM 23.00 s = top-level calls 8.00" in w.split_line(rec)
+
+
 def test_witness_certificates_catch_a_wrong_answer():
     """The certificates hold an exact answer to 0 and flag a perturbed
     one: x off its bound, a dual of the wrong sign, a gap."""

@@ -38,7 +38,7 @@ def test_import_leaves_jax_out():
             "bensolve_tpu_torch.io.checkpoint, bensolve_tpu_torch.io.plot, "
             "bensolve_tpu_torch.vlp.writer, bensolve_tpu_torch.bench, "
             "bensolve_tpu_torch.scale_many, bensolve_tpu_torch.slow_runner, "
-            "bensolve_tpu_torch.ex09_probe; "
+            "bensolve_tpu_torch.ex09_probe, bensolve_tpu_torch.graft_entry; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'bensolve_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")

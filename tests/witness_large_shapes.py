@@ -18,7 +18,11 @@ seed=7)`` stands in for them:
    (``ipm.HOST_FALLBACK``, ``HOST_FALLBACK_SECONDS``).  ``--host K``
    caps that fallback at K LPs per IPM call (default: the config's own,
    32); ``--host off`` turns it off (the IPM's rescue pass and float64
-   simplex fallback then resolve its ITLIM LPs on the device).
+   simplex fallback then resolve its ITLIM LPs on the device), and the
+   IPM's seconds are split into four disjoint terms (``HostBound``): the
+   top-level calls, the rescue IPM, the simplex nested in the rescue
+   pass and the simplex after it, with the LPs of each and those the
+   rescue IPM resolved itself.
 2. **ex09 shape** (``--ex09 Q M N B``): one phase-2 round of B LPs, the
    P2 template's LPs of the VLP for B synthetic frontier vertices
    (``bench.make_p2_instances``), through ``lp.solve_batch_auto`` at
@@ -64,61 +68,156 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+# the four disjoint terms of the IPM's seconds (HostBound)
+SPLIT = ("top_level_s", "rescue_ipm_s", "simplex_in_rescue_s",
+         "simplex_top_s")
+
+
 class HostBound:
     """Counts over the interior-point solves inside the block: top-level
     calls, their LPs and seconds (synchronised host clock); the LPs each
     call hands, or under a cap would hand, to host HiGHS (ITLIM, or
     OPTIMAL at quality 1 or 2, after its device pass) and those HiGHS
     solved; and, with the host fallback off, the LPs the IPM's rescue
-    pass re-ran on the device and those its float64 simplex fallback
-    re-solved there, with the LPs left loose or ITLIM at the end."""
+    pass re-ran on the device, those it resolved itself, and those the
+    float64 simplex fallback re-solved there, with the LPs left loose or
+    ITLIM at the end.
 
-    def __init__(self, device):
-        self.device = device
+    The rescue pass is a nested ``solve_batch_ipm(..., _rescue=True)``
+    call, and its ITLIM LPs go to the simplex fallback inside that call;
+    a top-level call's own fallback runs after its rescue pass.  The
+    seconds are split four ways (``SPLIT``), each the sum of its own
+    stretches of one clock: entering a nested call closes the stretch of
+    the call around it and leaving it opens a new one, so the terms are
+    disjoint and together fill the top-level calls' wall (``seconds``):
+    (a) ``top_level_s``, the top-level calls outside their rescue pass
+    and fallback; (b) ``rescue_ipm_s``, the rescue passes outside their
+    nested simplex; (c) ``simplex_in_rescue_s``, that nested simplex;
+    (d) ``simplex_top_s``, a top-level call's fallback after its rescue
+    pass.  ``rescue_s`` = (b) + (c) and ``simplex_s`` = (c) + (d).
+    ``per_call`` holds one record per top-level call.  ``pkg`` names the
+    package whose ``lp.ipm``, ``lp.simplex`` and ``lp.revised`` are
+    wrapped (the JAX package's too: only counts are meaningful there, its
+    device work being asynchronous); ``clock`` is the host clock."""
+
+    def __init__(self, device, pkg="bensolve_tpu_torch",
+                 clock=time.perf_counter):
+        self.device, self.pkg, self.clock = device, pkg, clock
         self.calls = self.lps = self.bound = self.solved = 0
-        self.rescued = self.simplex = self.loose = self.itlim = 0
-        # seconds of the top-level calls, and of the rescue passes and
-        # simplex fallbacks inside them
-        self.seconds = self.rescue_s = self.simplex_s = 0.0
+        self.rescued = self.rescue_resolved = self.loose = self.itlim = 0
+        self.simplex_in_rescue = self.simplex_top = 0
+        self.seconds = 0.0
+        self.split = dict.fromkeys(SPLIT, 0.0)
+        self.per_call = []
+        # the terms in progress, innermost last: [term, stretch start]
+        self._stack = []
+
+    @property
+    def simplex(self):
+        return self.simplex_in_rescue + self.simplex_top
+
+    @property
+    def rescue_s(self):
+        return self.split["rescue_ipm_s"] + self.split["simplex_in_rescue_s"]
+
+    @property
+    def simplex_s(self):
+        return self.split["simplex_in_rescue_s"] + self.split["simplex_top_s"]
+
+    def _enter(self, term):
+        _sync(self.device)
+        now = self.clock()
+        if self._stack:
+            outer = self._stack[-1]
+            self.split[outer[0]] += now - outer[1]
+        self._stack.append([term, now])
+        return now
+
+    def _leave(self):
+        _sync(self.device)
+        now = self.clock()
+        term, start = self._stack.pop()
+        self.split[term] += now - start
+        if self._stack:
+            self._stack[-1][1] = now
+        return now
+
+    def record(self):
+        """The counts and seconds as record keys."""
+        total = self.seconds
+        parts = sum(self.split.values())
+        return dict(ipm_top_calls=self.calls, ipm_lps=self.lps,
+                    ipm_s=total, host_bound=self.bound,
+                    rescued=self.rescued,
+                    rescue_resolved=self.rescue_resolved,
+                    rescue_s=self.rescue_s,
+                    simplex_fallback=self.simplex,
+                    simplex_in_rescue=self.simplex_in_rescue,
+                    simplex_top=self.simplex_top, simplex_s=self.simplex_s,
+                    **self.split, split_sum_s=parts,
+                    split_gap=abs(parts - total) / total if total else 0.0,
+                    loose_end=self.loose, itlim_end=self.itlim,
+                    per_call=self.per_call)
 
     def __enter__(self):
-        from bensolve_tpu_torch.lp import ipm, revised, simplex
-        from bensolve_tpu_torch.lp.simplex import ITLIM, OPTIMAL
+        import importlib
+
+        ipm = importlib.import_module(f"{self.pkg}.lp.ipm")
+        simplex = importlib.import_module(f"{self.pkg}.lp.simplex")
+        revised = importlib.import_module(f"{self.pkg}.lp.revised")
+        ITLIM, OPTIMAL = simplex.ITLIM, simplex.OPTIMAL
 
         self.saved = [(ipm, "solve_batch_ipm", ipm.solve_batch_ipm),
                       (simplex, "solve_batch", simplex.solve_batch),
                       (revised, "solve_batch_revised",
                        revised.solve_batch_revised)]
         real_ipm = ipm.solve_batch_ipm
-        # IPM calls, and simplex fallbacks, in progress
-        depth, fb_depth = [0], [0]
 
-        def counted(*a, **kw):
-            if kw.get("_rescue"):
-                t0 = time.perf_counter()
-                res = real_ipm(*a, **kw)
-                _sync(self.device)
-                self.rescue_s += time.perf_counter() - t0
-                self.rescued += int(res.status.size)
-                return res
-            h0 = ipm.HOST_FALLBACK
-            _sync(self.device)
-            t0 = time.perf_counter()
-            depth[0] += 1
+        def rescue(*a, **kw):
+            call = (self.per_call[-1] if self._stack
+                    and self._stack[-1][0] == "top_level_s" else None)
+            n_sx = self.simplex_in_rescue
+            self._enter("rescue_ipm_s")
             try:
                 res = real_ipm(*a, **kw)
             finally:
-                depth[0] -= 1
-            _sync(self.device)
-            self.seconds += time.perf_counter() - t0
+                self._leave()
+            n = int(np.asarray(res.status).size)
+            to_sx = self.simplex_in_rescue - n_sx
+            # the nested fallback takes exactly the LPs the rescue IPM
+            # left ITLIM; without it they come back ITLIM
+            left = to_sx or int((np.asarray(res.status) == ITLIM).sum())
+            self.rescued += n
+            self.rescue_resolved += n - left
+            if call is not None:
+                call["rescued"] += n
+                call["rescue_resolved"] += n - left
+                call["simplex_in_rescue"] += to_sx
+            return res
+
+        def counted(*a, **kw):
+            if kw.get("_rescue"):
+                return rescue(*a, **kw)
+            h0 = getattr(ipm, "HOST_FALLBACK", 0)
+            call = dict(lps=0, rescued=0, rescue_resolved=0,
+                        simplex_in_rescue=0, simplex_top=0, seconds=0.0)
+            self.per_call.append(call)
+            t0 = self._enter("top_level_s")
+            try:
+                res = real_ipm(*a, **kw)
+            finally:
+                t1 = self._leave()
+            self.seconds += t1 - t0
             # an LP HiGHS solved is OPTIMAL at quality 0 now
-            solved = ipm.HOST_FALLBACK - h0
-            q = (res.quality if res.quality is not None
-                 else np.zeros(res.status.size, int))
-            loose = int(((res.status == OPTIMAL) & (q >= 1)).sum())
-            itlim = int((res.status == ITLIM).sum())
+            solved = getattr(ipm, "HOST_FALLBACK", 0) - h0
+            status = np.asarray(res.status)
+            q = (np.asarray(res.quality) if res.quality is not None
+                 else np.zeros(status.size, int))
+            loose = int(((status == OPTIMAL) & (q >= 1)).sum())
+            itlim = int((status == ITLIM).sum())
+            call.update(lps=int(status.size), seconds=t1 - t0)
             self.calls += 1
-            self.lps += int(res.status.size)
+            self.lps += int(status.size)
             self.solved += solved
             self.bound += solved + loose + itlim
             self.loose += loose
@@ -127,18 +226,24 @@ class HostBound:
 
         def fallback(real):
             def run(A, c, *a, **kw):
-                outer = depth[0] and not fb_depth[0]
-                if outer:
-                    self.simplex += int(np.atleast_2d(c).shape[0])
-                t0 = time.perf_counter()
-                fb_depth[0] += 1
+                # only a fallback called by an IPM call is counted (a
+                # solver the fallback calls in turn stays in its term)
+                inside = self._stack[-1][0] if self._stack else None
+                if inside not in ("top_level_s", "rescue_ipm_s"):
+                    return real(A, c, *a, **kw)
+                n = int(np.atleast_2d(c).shape[0])
+                if inside == "rescue_ipm_s":
+                    self.simplex_in_rescue += n
+                    term = "simplex_in_rescue_s"
+                else:
+                    self.simplex_top += n
+                    self.per_call[-1]["simplex_top"] += n
+                    term = "simplex_top_s"
+                self._enter(term)
                 try:
                     return real(A, c, *a, **kw)
                 finally:
-                    fb_depth[0] -= 1
-                    if outer:
-                        _sync(self.device)
-                        self.simplex_s += time.perf_counter() - t0
+                    self._leave()
             return run
 
         ipm.solve_batch_ipm = counted
@@ -176,29 +281,38 @@ def ex07_shape(device, q=EX07[0], m=EX07[1], n=EX07[2], seed=SEED,
                                        ckpt_dir=ckpt_dir)
     return dict(row, shape=[q, m, n], seed=seed,
                 lp_shape=[m + 2 * q + 1, n + q + 1], host=host,
-                ipm_calls=ipm.CALLS - calls, ipm_top_calls=hb.calls,
-                ipm_lps=hb.lps, ipm_s=hb.seconds, host_bound=hb.bound,
-                host_lps=ipm.HOST_FALLBACK - h0,
-                host_s=ipm.HOST_FALLBACK_SECONDS - hs0,
-                rescued=hb.rescued, rescue_s=hb.rescue_s,
-                simplex_fallback=hb.simplex, simplex_s=hb.simplex_s,
-                loose_end=hb.loose, itlim_end=hb.itlim), r
+                ipm_calls=ipm.CALLS - calls, host_lps=ipm.HOST_FALLBACK - h0,
+                host_s=ipm.HOST_FALLBACK_SECONDS - hs0, **hb.record()), r
 
 
 def ex07_ok(rec):
     return rec["status"] == "OPTIMAL" and rec["support"].startswith("pass")
 
 
+def split_line(rec):
+    """The IPM's seconds in HostBound's four disjoint terms."""
+    return (f"IPM {rec['ipm_s']:.2f} s = top-level calls "
+            f"{rec['top_level_s']:.2f} ({rec['ipm_lps']} LPs) + rescue IPM "
+            f"{rec['rescue_ipm_s']:.2f} ({rec['rescued']} LPs, "
+            f"{rec['rescue_resolved']} resolved by it) + simplex in the "
+            f"rescue pass {rec['simplex_in_rescue_s']:.2f} "
+            f"({rec['simplex_in_rescue']} LPs) + simplex after it "
+            f"{rec['simplex_top_s']:.2f} ({rec['simplex_top']} LPs); the "
+            f"four sum to {rec['split_sum_s']:.2f} s, "
+            f"{rec['split_gap']:.1e} of the total apart")
+
+
 def ex07_line(rec):
     host = rec["host"]
     if host == "off":
         fb = (f"host fallback off: {rec['rescued']} LPs re-run by the "
-              f"rescue pass ({rec['rescue_s']:.2f} s) and "
-              f"{rec['simplex_fallback']} re-solved by the float64 simplex "
-              f"({rec['simplex_s']:.2f} s), both on the device; at the end "
-              f"{rec['loose_end']} loose (quality >= 1) and "
-              f"{rec['itlim_end']} ITLIM LPs, which the default hands to "
-              f"host HiGHS")
+              f"rescue pass ({rec['rescue_s']:.2f} s with its nested "
+              f"simplex), {rec['rescue_resolved']} of them resolved by "
+              f"the rescue IPM, and {rec['simplex_fallback']} re-solved "
+              f"by the float64 simplex ({rec['simplex_s']:.2f} s), all on "
+              f"the device; at the end {rec['loose_end']} loose (quality "
+              f">= 1) and {rec['itlim_end']} ITLIM LPs, which the default "
+              f"hands to host HiGHS; {split_line(rec)}")
     else:
         fb = (f"LPs bound for host HiGHS {rec['host_bound']}, solved there "
               f"{rec['host_lps']} in {rec['host_s']:.2f} s (cap per call: "
