@@ -305,7 +305,8 @@ def _timed(device, fn, *args, **kw):
 def _launches():
     from bensolve_tpu_torch.lp import group_simplex as gs
 
-    return {"cluster": gs.CALLS_CLUSTER, "global": gs.CALLS_GLOBAL}
+    return {"cluster": gs.CALLS_CLUSTER, "spill": gs.CALLS_SPILL,
+            "global": gs.CALLS_GLOBAL}
 
 
 def run_device(device, M, N, B, reps=3):
@@ -335,7 +336,7 @@ def run_device(device, M, N, B, reps=3):
     after = _launches()
     launches = {k: after[k] - before[k] for k in after}
     if device == "cuda":
-        gate(launches["cluster"] + launches["global"] > 0,
+        gate(sum(launches.values()) > 0,
              f"device: the batch made no kernel launch ({launches})")
 
     # the Benson re-solve pattern: each LP restarts from its own optimal
@@ -361,8 +362,9 @@ def run_device(device, M, N, B, reps=3):
                                                         col_lb, col_ub))
     log(f"# device: {B} LPs {M}x{N} float32 on {device}: cold {cold_s:.3f} s "
         f"(all OPTIMAL), re-solves {[round(t, 4) for t in times]} s -> "
-        f"{out['rate']:.1f} LP/s; kernel launches cluster/global "
-        f"{launches['cluster']}/{launches['global']}; pivots/LP cold "
+        f"{out['rate']:.1f} LP/s; kernel launches cluster/spill/global "
+        f"{launches['cluster']}/{launches['spill']}/{launches['global']}; "
+        f"pivots/LP cold "
         f"{out['cold_pivots']:.2f}; warm re-solve (dual simplex) "
         f"{warm_s:.3f} s, {out['warm_rate']:.1f} LP/s, pivots/LP "
         f"{out['warm_pivots']:.2f}")

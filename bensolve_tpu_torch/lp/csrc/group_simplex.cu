@@ -15,7 +15,7 @@
 // TOL_DJ = 1e-5, TOL_PIV = 1e-6), +-inf arrive encoded as +-1e30.
 // Primal and dual recovery runs outside (simplex._final_solutions).
 //
-// Two variants, chosen by shape alone (group_simplex.plan in Python):
+// Three variants, chosen by shape alone (group_simplex.plan in Python):
 //
 // * group_simplex_cluster_kernel, the main one.  The Pallas kernel keeps a
 //   group's tableau in VMEM for every pivot; here an LP's (Mp, NT) tableau
@@ -46,9 +46,34 @@
 //   two choices: the hardware starts the next LP's cluster wherever one
 //   finishes, which balances LPs of unequal length without the
 //   bookkeeping of persistent clusters, and a launch stays one per batch.
-// * group_simplex_kernel, for shapes no cluster holds (f32 tableaux of
-//   more than roughly 3 MB): the first port's design, W in a global-memory workspace,
-//   one CTA of 256 threads per LP.
+// * group_simplex_spill_kernel, for tableaux a 16-CTA cluster does not
+//   hold (f32, from about 3 MB; the Pallas kernel keeps them in VMEM up to
+//   about 6 MB).  The same code as the cluster kernel (cluster_body with
+//   kSpill set) at C = 16, with a row split: rows [0, Ms) of a CTA's slice
+//   stay in shared memory, rows [Ms, Mp) live in a global spill workspace,
+//   one (Mp - Ms, S) region per CTA and LP, row stride S.  Ms is the
+//   largest multiple of 4 that fits beside the vectors and a ring of
+//   kStages 16-byte slots per thread.  Every per-pivot loop is the cluster
+//   kernel's with the same thread-to-element map and summation order; only
+//   where row i lives differs, so moving rows to the workspace changes no
+//   pivot.  The pricing pass, the initial d2 sum and the rank-1 update
+//   stream a thread's spilled quads (the rows of its row group, in
+//   increasing order) through its ring by cp.async, kStages - 1 copies in
+//   flight, the first ones issued before the thread walks its
+//   shared-memory rows, so their update overlaps the loads; the rank-1
+//   update writes each spilled quad back with st.global.cg.  A thread
+//   reads and writes only its own spilled quads in those loops, so the
+//   stream needs no barrier; the other readers of the workspace (the
+//   initial xb sum, the pivot row, and the owner's gather of the entering
+//   column's spilled entries into shared memory before it sends alpha)
+//   read it after a block barrier, with ld.global.cg (no stale L1 line).
+//   Only the live clusters (about 8 of 16 CTAs on 132 SMs) touch their
+//   regions, 0.4-3 MB each at the band's shapes, so the workspace the
+//   card works on stays inside its 50 MB L2.
+// * group_simplex_kernel, for shapes neither of the above takes (rows or
+//   slices not in fours, or row vectors that do not fit beside a slice):
+//   the first port's design, W in a global-memory workspace, one CTA of
+//   256 threads per LP.
 //
 // What bounds the cluster kernel on the H100.  Against the f32 roofline
 // (every input read and output written once through HBM; 2 Mp NT flop for
@@ -71,6 +96,18 @@
 // barrier each (redux.sync on order-preserving keys of the floats).  At
 // Mp <= 32 the column sums stay sequential over the rows, so small LPs
 // take the plain version's exact pivots.
+//
+// What bounds the spill kernel.  The same operation count as the cluster
+// kernel's, but each rank-1 update also reads and writes, and each
+// pricing pass reads, the (Mp - Ms) x S spilled rows of every CTA through
+// L2: at (768, 1536) about 118 KB per CTA, 1.9 MB per LP and pivot each
+// way.  One SM keeps about 18 KB in flight through its ring (Little's
+// law: ~23 B per clock at ~800 cycles of L2 latency), so a pivot's spill
+// traffic costs a few microseconds per CTA where the shared-memory rows
+// cost about one; the first port's design streamed the whole tableau
+// through one SM (7-9 MB per pivot at these shapes).  The work is a
+// rank-1 update and a matrix-vector product: nothing in it is a matrix
+// product, so neither kernel uses the tensor cores (wgmma).
 //
 // Arithmetic is IEEE with explicit round-to-nearest intrinsics for the
 // products and sums (no contraction into FMA), so the kernel's pivot
@@ -100,6 +137,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 4;        // extra columns per row of a shared W slice
 // returned by the cluster launch when no cluster of that size fits the card
 constexpr int kNoClusterFits = -2;
+constexpr int kSpillC = 16;    // CTAs per cluster of the spill variant
+constexpr int kStages = 4;     // 16-byte ring slots per thread of the spill variant
 
 template <typename T>
 struct Ar;
@@ -286,60 +325,6 @@ __device__ T block_min1(T v, T* sv) {
   return warp_min_all(posted ? sv[lane] : Ar<T>::pos_inf());
 }
 
-// acc_j = sum_i W[i][j] * w[i] for the S columns of a shared slice (row
-// stride LD), handed to fin(j, acc).  Each column is summed over Rp
-// interleaved row groups (rows g, g + Rp, ...) whose partials are then
-// added in group order; at M <= 32, Rp = 1 and each column is one
-// sequential sum over the rows.  Ends with a barrier.
-template <typename T, typename F>
-__device__ __forceinline__ void column_sums(const T* W, const T* w, T* part, int M, int S, int LD,
-                                            F fin) {
-  using A = Ar<T>;
-  const int S4 = S / 4;
-  const int LD4 = LD / 4;
-  const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  const int CW = S4 < nth ? S4 : nth;
-  const int Rp = M <= 32 ? 1 : nth / CW;
-  const int cl = tid % CW;
-  const int rl = tid / CW;
-  const Quad<T>* W4 = reinterpret_cast<const Quad<T>*>(W);
-  if (rl < Rp) {
-    for (int j4 = cl; j4 < S4; j4 += CW) {
-      T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-      for (int i = rl; i < M; i += Rp) {
-        const Quad<T> q = W4[(size_t)i * LD4 + j4];
-        const T wi = w[i];
-        a0 = A::add(a0, A::mul(q.v[0], wi));
-        a1 = A::add(a1, A::mul(q.v[1], wi));
-        a2 = A::add(a2, A::mul(q.v[2], wi));
-        a3 = A::add(a3, A::mul(q.v[3], wi));
-      }
-      if (Rp == 1) {
-        fin(4 * j4, a0);
-        fin(4 * j4 + 1, a1);
-        fin(4 * j4 + 2, a2);
-        fin(4 * j4 + 3, a3);
-      } else {
-        T* p = part + (size_t)rl * S + 4 * j4;
-        p[0] = a0;
-        p[1] = a1;
-        p[2] = a2;
-        p[3] = a3;
-      }
-    }
-  }
-  if (Rp > 1) {
-    __syncthreads();
-    for (int j = tid; j < S; j += nth) {
-      T acc = part[j];
-      for (int g = 1; g < Rp; ++g) acc = A::add(acc, part[(size_t)g * S + j]);
-      fin(j, acc);
-    }
-  }
-  __syncthreads();
-}
-
 // Point-to-point signalling inside a cluster.  A CTA that expects data
 // arms its own mbarrier with the byte count; senders write into its
 // shared memory with st.async, each store completing its bytes on that
@@ -394,6 +379,155 @@ __device__ __forceinline__ Quad<T> rank1(Quad<T> x, T a, const Quad<T>& w) {
   return x;
 }
 
+// Asynchronous 16-byte copy from global into shared memory (L2 only),
+// and its groups: commit the copies issued so far as one group; wait
+// until at most N groups of this thread are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A quad of the spill workspace, moved in 16-byte pieces that bypass
+// L1: stored (st.global.cg), or copied into shared memory (cp.async).
+template <typename T>
+__device__ __forceinline__ void stcg_quad(Quad<T>* p, const Quad<T>& q) {
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Quad<T>) / 16); ++k) {
+    uint4 u;
+    memcpy(&u, reinterpret_cast<const unsigned char*>(&q) + 16 * k, 16);
+    __stcg(reinterpret_cast<uint4*>(p) + k, u);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void cp_async_quad(Quad<T>* dst, const Quad<T>* src) {
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Quad<T>) / 16); ++k)
+    cp_async16(reinterpret_cast<unsigned char*>(dst) + 16 * k,
+               reinterpret_cast<const unsigned char*>(src) + 16 * k);
+}
+
+// The spilled quads of one thread in one column group j4: the rows
+// i0, i0 + step, ... < M of its row group that lie at or past Ms, in
+// increasing order.  begin() issues the first kStages - 1 copies into the
+// thread's ring (slot s at ring[s * kThreads + tid]) and returns, so the
+// thread can work on its shared-memory rows while they fly; walk(fn)
+// keeps kStages - 1 copies ahead and hands each quad to fn(i, x) once it
+// has landed.  Only this thread touches these quads and slots.
+template <typename T>
+struct SpillWalk {
+  const Quad<T>* src;   // the walk's first quad in the workspace
+  size_t stride;        // quads from one row of the walk to the next
+  Quad<T>* slot;
+  int i0, step, n;
+
+  // sp4: the CTA's region (row stride S4 quads, row Ms first); first: the
+  // thread's first row in any part of the tableau
+  __device__ __forceinline__ void init(const Quad<T>* sp4, int S4, Quad<T>* ring, int Ms, int M,
+                                       int first, int rstep, int j4) {
+    i0 = first < Ms ? first + ((Ms - first + rstep - 1) / rstep) * rstep : first;
+    step = rstep;
+    n = i0 < M ? (M - 1 - i0) / rstep + 1 : 0;
+    src = sp4 + (size_t)(i0 - Ms) * S4 + j4;
+    stride = (size_t)rstep * S4;
+    slot = ring + threadIdx.x;
+  }
+  // copy t of the walk (an empty group past its end, so the count of
+  // groups in flight stays the same)
+  __device__ __forceinline__ void issue(int t) {
+    if (t < n) cp_async_quad(slot + (t % kStages) * kThreads, src + (size_t)t * stride);
+    cp_async_commit();
+  }
+  __device__ __forceinline__ void begin() {
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t);
+  }
+  template <typename F>
+  __device__ __forceinline__ void walk(F fn) {
+    for (int t = 0; t < n; ++t) {
+      issue(t + kStages - 1);
+      cp_async_wait<kStages - 1>();   // copy t has landed
+      fn(i0 + t * step, slot[(t % kStages) * kThreads]);
+    }
+  }
+};
+
+// acc_j = sum_i W[i][j] * w[i] for the S columns of a CTA's slice, handed
+// to fin(j, acc): rows [0, Ms) from the shared slice W (row stride LD),
+// rows [Ms, M) (kSpill only) from the spill region sp4 through the ring.
+// Each column is summed over Rp interleaved row groups (rows g, g + Rp,
+// ...), each group in increasing row order, whose partials are then added
+// in group order; at M <= 32, Rp = 1 and each column is one sequential
+// sum over the rows.  Ends with a barrier.
+template <typename T, bool kSpill, typename F>
+__device__ __forceinline__ void column_sums(const T* W, const T* w, T* part, int M, int Ms, int S,
+                                            int LD, const Quad<T>* sp4, Quad<T>* ring, F fin) {
+  using A = Ar<T>;
+  const int S4 = S / 4;
+  const int LD4 = LD / 4;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int CW = S4 < nth ? S4 : nth;
+  const int Rp = M <= 32 ? 1 : nth / CW;
+  const int cl = tid % CW;
+  const int rl = tid / CW;
+  const Quad<T>* W4 = reinterpret_cast<const Quad<T>*>(W);
+  if (rl < Rp) {
+    for (int j4 = cl; j4 < S4; j4 += CW) {
+      T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
+      SpillWalk<T> sw;
+      if constexpr (kSpill) {
+        sw.init(sp4, S4, ring, Ms, M, rl, Rp, j4);
+        sw.begin();
+      }
+      for (int i = rl; i < Ms; i += Rp) {
+        const Quad<T> q = W4[(size_t)i * LD4 + j4];
+        const T wi = w[i];
+        a0 = A::add(a0, A::mul(q.v[0], wi));
+        a1 = A::add(a1, A::mul(q.v[1], wi));
+        a2 = A::add(a2, A::mul(q.v[2], wi));
+        a3 = A::add(a3, A::mul(q.v[3], wi));
+      }
+      if constexpr (kSpill) {
+        sw.walk([&](int i, const Quad<T>& q) {
+          const T wi = w[i];
+          a0 = A::add(a0, A::mul(q.v[0], wi));
+          a1 = A::add(a1, A::mul(q.v[1], wi));
+          a2 = A::add(a2, A::mul(q.v[2], wi));
+          a3 = A::add(a3, A::mul(q.v[3], wi));
+        });
+      }
+      if (Rp == 1) {
+        fin(4 * j4, a0);
+        fin(4 * j4 + 1, a1);
+        fin(4 * j4 + 2, a2);
+        fin(4 * j4 + 3, a3);
+      } else {
+        T* p = part + (size_t)rl * S + 4 * j4;
+        p[0] = a0;
+        p[1] = a1;
+        p[2] = a2;
+        p[3] = a3;
+      }
+    }
+  }
+  if (Rp > 1) {
+    __syncthreads();
+    for (int j = tid; j < S; j += nth) {
+      T acc = part[j];
+      for (int g = 1; g < Rp; ++g) acc = A::add(acc, part[(size_t)g * S + j]);
+      fin(j, acc);
+    }
+  }
+  __syncthreads();
+}
+
 // Dynamic shared memory of the global-memory variant (W not included).
 template <typename T>
 __host__ __device__ size_t smem_bytes(int M, int NT) {
@@ -401,21 +535,24 @@ __host__ __device__ size_t smem_bytes(int M, int NT) {
          2 * (size_t)NT;
 }
 
-// Dynamic shared memory of one CTA of a C-CTA cluster: the (M, S + kPad)
-// slice of W; four mbarriers; two buffers of exchange entries (16 bytes
-// for each warp of the cluster) and of the entering column's values (64
-// bytes); two column buffers of M; seven column vectors of the slice; six
-// replicated row vectors; the pricing partials; three reduction
-// scratches; basis; in_basis and at_upper.
+// Dynamic shared memory of one CTA of a C-CTA cluster that keeps rows
+// [0, Ms) of its slice in shared memory (Ms = M: the cluster variant):
+// the (Ms, S + kPad) slice of W; where rows are spilled (Ms < M), the
+// ring of kStages 16-byte slots per thread; four mbarriers; two buffers of
+// exchange entries (16 bytes for each warp of the cluster) and of the
+// entering column's values (64 bytes); two column buffers of M; seven
+// column vectors of the slice; six replicated row vectors; the pricing
+// partials; three reduction scratches; basis; in_basis and at_upper.
 template <typename T>
-__host__ __device__ size_t cluster_smem_bytes(int M, int NT, int C) {
+__host__ __device__ size_t cluster_smem_bytes(int M, int NT, int C, int Ms) {
   const size_t S = (size_t)(NT / C);
   const size_t LD = S + kPad;
-  const size_t nT = (size_t)M * LD + 2 * (size_t)M + 7 * S + 6 * (size_t)M +
+  const size_t nT = (size_t)Ms * LD + 2 * (size_t)M + 7 * S + 6 * (size_t)M +
                     4 * (size_t)kThreads + 3 * 64;
+  const size_t ring = Ms < M ? (size_t)kStages * kThreads * sizeof(Quad<T>) : 0;
   const size_t nI = (size_t)M + 3 * 96;
-  return nT * sizeof(T) + 4 * 8 + 2 * (size_t)C * kWarps * 16 + 2 * 64 + nI * sizeof(int) +
-         2 * S;
+  return nT * sizeof(T) + ring + 4 * 8 + 2 * (size_t)C * kWarps * 16 + 2 * 64 +
+         nI * sizeof(int) + 2 * S;
 }
 
 template <typename T>
@@ -689,19 +826,19 @@ group_simplex_kernel(const T* __restrict__ W0, const T* __restrict__ c_g,
   }
 }
 
-// One LP per cluster of C CTAs (see the note at the top).  work_out,
-// when not null, receives per LP (loop steps, pricing passes, rank-1
-// updates) for the roofline count of the caller.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g,
-                             const T* __restrict__ lb_g, const T* __restrict__ ub_g,
-                             const int32_t* __restrict__ basis0,
-                             const uint8_t* __restrict__ at_upper0,
-                             int32_t* __restrict__ status_out, int32_t* __restrict__ basis_out,
-                             uint8_t* __restrict__ at_upper_out, int32_t* __restrict__ iters_out,
-                             int32_t* __restrict__ work_out, int M, int NT, int max_iter,
-                             long long max_loop) {
+// One LP per cluster of C CTAs (see the note at the top): the body of the
+// cluster kernel (kSpill false, Ms = M) and of the spill kernel (kSpill
+// true: rows [Ms, M) of each slice in the workspace Wsp).  work_out, when
+// not null, receives per LP (loop steps, pricing passes, rank-1 updates)
+// for the roofline count of the caller.
+template <typename T, bool kSpill>
+__device__ __forceinline__ void cluster_body(
+    const T* __restrict__ W0, const T* __restrict__ c_g, const T* __restrict__ lb_g,
+    const T* __restrict__ ub_g, const int32_t* __restrict__ basis0,
+    const uint8_t* __restrict__ at_upper0, int32_t* __restrict__ status_out,
+    int32_t* __restrict__ basis_out, uint8_t* __restrict__ at_upper_out,
+    int32_t* __restrict__ iters_out, int32_t* __restrict__ work_out, T* Wsp, int M, int Ms_arg,
+    int NT, int max_iter, long long max_loop) {
   using A = Ar<T>;
   const T TOL_BND = T(1e-5);
   const T TOL_DJ = T(1e-5);
@@ -721,11 +858,15 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
   const int LD4 = LD / 4;
   const int j0 = rank * S;     // first column of the slice
   const int nX = C * kWarps;   // exchange entries: one per warp of the cluster
+  const int Ms = kSpill ? Ms_arg : M;   // rows of the slice in shared memory
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* W = reinterpret_cast<T*>(smem_raw);
+  // the spill variant's ring of kStages 16-byte slots per thread
+  Quad<T>* ring = reinterpret_cast<Quad<T>*>(W + (size_t)Ms * LD);
   // mbar[0..1]: the exchange of step parity 0/1; mbar[2..3]: the column
-  uint64_t* mbar = reinterpret_cast<uint64_t*>(W + (size_t)M * LD);
+  uint64_t* mbar =
+      reinterpret_cast<uint64_t*>(ring + (kSpill && Ms < M ? kStages * kThreads : 0));
   // exchange entries, 16 bytes each, two buffers: (score, index, any
   // eligible) from every warp of the cluster
   uint4* xch = reinterpret_cast<uint4*>(mbar + 4);
@@ -766,6 +907,14 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
   const int rl = tid / CW;
   Quad<T>* W4 = reinterpret_cast<Quad<T>*>(W);
   const size_t ob = (size_t)b * NT;
+  // this CTA's spill region: rows [Ms, M) of the slice, row stride S
+  T* sp = kSpill ? Wsp + ((size_t)b * C + rank) * (size_t)(M - Ms) * S : nullptr;
+  Quad<T>* sp4 = reinterpret_cast<Quad<T>*>(sp);
+  // W[i][jl] of the slice, wherever row i lives
+  auto w_at = [&](int i, int jl) -> T {
+    if (kSpill && i >= Ms) return __ldcg(sp + (size_t)(i - Ms) * S + jl);
+    return W[(size_t)i * LD + jl];
+  };
 
   auto lo_of = [&](int jl) -> T {
     const bool lbf = lb[jl] > -BIG, ubf = ub[jl] < BIG;
@@ -789,11 +938,19 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     gamma[jl] = ONE;
     in_basis[jl] = 0;
   }
-  // the slice of W0, read once from L2/HBM in 16-byte vectors
-  for (int u = tid; u < M * S4; u += nth) {
+  // the slice of W0, read once from L2/HBM in 16-byte vectors; rows past
+  // Ms copied into the spill region
+  for (int u = tid; u < Ms * S4; u += nth) {
     const int i = u / S4;
     const int j4 = u - i * S4;
     W4[(size_t)i * LD4 + j4] = reinterpret_cast<const Quad<T>*>(W0 + (size_t)i * NT + j0)[j4];
+  }
+  if constexpr (kSpill) {
+    for (int u = tid; u < (M - Ms) * S4; u += nth) {
+      const int i = Ms + u / S4;
+      const int j4 = u - (i - Ms) * S4;
+      stcg_quad(sp4 + u, reinterpret_cast<const Quad<T>*>(W0 + (size_t)i * NT + j0)[j4]);
+    }
   }
   __syncthreads();
   for (int i = tid; i < M; i += nth) {
@@ -816,7 +973,7 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     T acc = ZERO;
     for (int jl = lane; jl < S; jl += 32) {
       const T zn = in_basis[jl] ? ZERO : (at_upper[jl] ? hi_of(jl) : lo_of(jl));
-      acc = A::add(acc, A::mul(W[(size_t)i * LD + jl], zn));
+      acc = A::add(acc, A::mul(w_at(i, jl), zn));
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc = A::add(acc, __shfl_down_sync(0xffffffffu, acc, off));
@@ -829,7 +986,8 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     xb[i] = -acc;
   }
   // carried phase-2 row d2 = c - cB W
-  column_sums(W, cB, part, M, S, LD, [&](int jl, T acc) { d2[jl] = A::sub(c[jl], acc); });
+  column_sums<T, kSpill>(W, cB, part, M, Ms, S, LD, sp4, ring,
+                         [&](int jl, T acc) { d2[jl] = A::sub(c[jl], acc); });
 
   int status = crossed ? kInfeasible : kRunning;
   int stall = 0;
@@ -868,7 +1026,7 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
         cbe[i] = feasible ? cB[i] : A::add(vup ? ONE : ZERO, vlo ? -ONE : ZERO);
       }
       __syncthreads();
-      column_sums(W, cbe, part, M, S, LD, [&](int jl, T acc) {
+      column_sums<T, kSpill>(W, cbe, part, M, Ms, S, LD, sp4, ring, [&](int jl, T acc) {
         const T dj = A::sub(feasible ? c[jl] : ZERO, acc);
         d[jl] = dj;
         if (feasible) d2[jl] = dj;
@@ -926,6 +1084,16 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     const int owner = q / S;
     const int lq = q - owner * S;
     if (rank == owner) {
+      if constexpr (kSpill) {
+        // the column's spilled entries, gathered in one parallel pass into
+        // cbe (free from the end of this step's pricing pass to the start
+        // of the next one's, past the ratio test's barriers; tt is not:
+        // the ratio test writes it while the last sends may still read)
+        if (Ms < M) {
+          for (int i = Ms + tid; i < M; i += nth) cbe[i] = __ldcg(sp + (size_t)(i - Ms) * S + lq);
+          __syncthreads();
+        }
+      }
       // 16 bytes of consecutive rows of column q per store, to each CTA
       constexpr int kRows = 16 / sizeof(T);
       const int MQ = M / kRows;
@@ -934,7 +1102,10 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
         const int dst = u / MQ;
         T rows[kRows];
 #pragma unroll
-        for (int v = 0; v < kRows; ++v) rows[v] = W[(size_t)(kRows * iq + v) * LD + lq];
+        for (int v = 0; v < kRows; ++v) {
+          const int i = kRows * iq + v;
+          rows[v] = (kSpill && i >= Ms) ? cbe[i] : W[(size_t)i * LD + lq];
+        }
         uint4 w4;
         memcpy(&w4, rows, 16);
         st_async16(remote_addr(abuf_c + (uint32_t)((bf * M + kRows * iq) * sizeof(T)), dst),
@@ -1030,7 +1201,7 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     const T g_leave = g_leave_raw > ONE ? g_leave_raw : ONE;
     // the scaled pivot row, read before anyone writes row r
     if (do_pivot)
-      for (int jl = tid; jl < S; jl += nth) wrs[jl] = A::div(W[(size_t)r * LD + jl], alpha_r);
+      for (int jl = tid; jl < S; jl += nth) wrs[jl] = A::div(w_at(r, jl), alpha_r);
     __syncthreads();   // every thread has read the pre-pivot state
 
     // ---- updates ----------------------------------------------------------
@@ -1052,13 +1223,18 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
     if (do_pivot) {
       // W_ij -= alpha_i * wrs_j, row r := wrs; each thread keeps its four
       // columns of wrs in registers and walks every R-th row, four rows'
-      // loads in flight at a time
+      // loads in flight at a time, then its spilled rows through its ring
       if (rl < R) {
         const Quad<T>* wrs4 = reinterpret_cast<const Quad<T>*>(wrs);
         for (int j4 = cl; j4 < S4; j4 += CW) {
           const Quad<T> w = wrs4[j4];
+          SpillWalk<T> sw;
+          if constexpr (kSpill) {
+            sw.init(sp4, S4, ring, Ms, M, rl, R, j4);
+            sw.begin();
+          }
           int i = rl;
-          for (; i + 3 * R < M; i += 4 * R) {
+          for (; i + 3 * R < Ms; i += 4 * R) {
             Quad<T> x[4];
             T a[4];
 #pragma unroll
@@ -1072,9 +1248,14 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
               W4[(size_t)iu * LD4 + j4] = iu == r ? w : rank1(x[u], a[u], w);
             }
           }
-          for (; i < M; i += R) {
+          for (; i < Ms; i += R) {
             const Quad<T> x = W4[(size_t)i * LD4 + j4];
             W4[(size_t)i * LD4 + j4] = i == r ? w : rank1(x, alpha[i], w);
+          }
+          if constexpr (kSpill) {
+            sw.walk([&](int iu, const Quad<T>& x) {
+              stcg_quad(sp4 + (size_t)(iu - Ms) * S4 + j4, iu == r ? w : rank1(x, alpha[iu], w));
+            });
           }
         }
       }
@@ -1121,11 +1302,42 @@ group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g
   cluster.sync();   // no CTA leaves while another may still read its shared memory
 }
 
-// The launch configuration of the cluster kernel (attributes set).
-cudaError_t cluster_config(int B, int M, int NT, int C, cudaStream_t stream,
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+group_simplex_cluster_kernel(const T* __restrict__ W0, const T* __restrict__ c_g,
+                             const T* __restrict__ lb_g, const T* __restrict__ ub_g,
+                             const int32_t* __restrict__ basis0,
+                             const uint8_t* __restrict__ at_upper0,
+                             int32_t* __restrict__ status_out, int32_t* __restrict__ basis_out,
+                             uint8_t* __restrict__ at_upper_out, int32_t* __restrict__ iters_out,
+                             int32_t* __restrict__ work_out, int M, int NT, int max_iter,
+                             long long max_loop) {
+  cluster_body<T, false>(W0, c_g, lb_g, ub_g, basis0, at_upper0, status_out, basis_out,
+                         at_upper_out, iters_out, work_out, nullptr, M, M, NT, max_iter,
+                         max_loop);
+}
+
+// The spill variant: C = kSpillC, rows [Ms, M) of each slice in Wsp, a
+// (B, kSpillC, M - Ms, NT / kSpillC) workspace.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+group_simplex_spill_kernel(const T* __restrict__ W0, const T* __restrict__ c_g,
+                           const T* __restrict__ lb_g, const T* __restrict__ ub_g,
+                           const int32_t* __restrict__ basis0,
+                           const uint8_t* __restrict__ at_upper0, T* Wsp,
+                           int32_t* __restrict__ status_out, int32_t* __restrict__ basis_out,
+                           uint8_t* __restrict__ at_upper_out, int32_t* __restrict__ iters_out,
+                           int32_t* __restrict__ work_out, int M, int Ms, int NT, int max_iter,
+                           long long max_loop) {
+  cluster_body<T, true>(W0, c_g, lb_g, ub_g, basis0, at_upper0, status_out, basis_out,
+                        at_upper_out, iters_out, work_out, Wsp, M, Ms, NT, max_iter, max_loop);
+}
+
+// The launch configuration of a cluster kernel (attributes set): B
+// clusters of C CTAs with smem bytes of dynamic shared memory each.
+template <typename K>
+cudaError_t cluster_config(K kern, size_t smem, int B, int C, cudaStream_t stream,
                            cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  auto kern = group_simplex_cluster_kernel<float>;
-  const size_t smem = cluster_smem_bytes<float>(M, NT, C);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1147,24 +1359,40 @@ cudaError_t cluster_config(int B, int M, int NT, int C, cudaStream_t stream,
   return cudaSuccess;
 }
 
+// cudaOccupancyMaxActiveClusters of a configured cluster kernel into
+// *out; the CUDA error (0 on success).
+template <typename K>
+int max_active(K kern, size_t smem, int C, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config(kern, smem, 1, C, nullptr, &cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs (float32): of a C-CTA
-// cluster for C >= 1, of the global-memory variant for C == 0.
-size_t group_simplex_smem_bytes_f32(int M, int NT, int C) {
-  return C == 0 ? smem_bytes<float>(M, NT) : cluster_smem_bytes<float>(M, NT, C);
+// cluster for C >= 1 that keeps `rows` rows of its slice in shared memory
+// (rows = M: the cluster variant; rows < M: the spill variant), of the
+// global-memory variant for C == 0 (rows ignored).
+size_t group_simplex_smem_bytes_f32(int M, int NT, int C, int rows) {
+  return C == 0 ? smem_bytes<float>(M, NT) : cluster_smem_bytes<float>(M, NT, C, rows);
 }
 
-// cudaOccupancyMaxActiveClusters for C-CTA clusters at this shape, into
-// *out.  Returns the CUDA error (0 on success).
+// cudaOccupancyMaxActiveClusters for C-CTA clusters of the cluster
+// kernel at this shape, into *out.  Returns the CUDA error (0 on success).
 int group_simplex_max_active_clusters_f32(int M, int NT, int C, int* out) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config(1, M, NT, C, nullptr, &cfg, attr);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveClusters(out, group_simplex_cluster_kernel<float>, &cfg);
+  return max_active(group_simplex_cluster_kernel<float>,
+                    cluster_smem_bytes<float>(M, NT, C, M), C, out);
+}
+
+// The same for the spill kernel keeping `rows` rows in shared memory.
+int group_simplex_spill_max_active_clusters_f32(int M, int NT, int rows, int* out) {
+  return max_active(group_simplex_spill_kernel<float>,
+                    cluster_smem_bytes<float>(M, NT, kSpillC, rows), kSpillC, out);
 }
 
 // Launch one C-CTA cluster per LP on ``stream``.  Returns 0 on success,
@@ -1176,22 +1404,55 @@ int group_simplex_cluster_f32(const void* W0, const void* c, const void* lb, con
                               void* basis, void* at_upper, void* iters, void* work, int B,
                               int M, int NT, int C, int max_iter, long long max_loop,
                               void* stream) {
+  auto kern = group_simplex_cluster_kernel<float>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t err = cluster_config(B, M, NT, C, static_cast<cudaStream_t>(stream), &cfg, attr);
+  cudaError_t err = cluster_config(kern, cluster_smem_bytes<float>(M, NT, C, M), B, C,
+                                   static_cast<cudaStream_t>(stream), &cfg, attr);
   if (err != cudaSuccess) return (int)err;
   int active = 0;
-  err = cudaOccupancyMaxActiveClusters(&active, group_simplex_cluster_kernel<float>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (active < 1) return kNoClusterFits;
   if (B > 0) {
     err = cudaLaunchKernelEx(
-        &cfg, group_simplex_cluster_kernel<float>, static_cast<const float*>(W0),
-        static_cast<const float*>(c), static_cast<const float*>(lb),
-        static_cast<const float*>(ub), static_cast<const int32_t*>(basis0),
-        static_cast<const uint8_t*>(at_upper0), static_cast<int32_t*>(status),
-        static_cast<int32_t*>(basis), static_cast<uint8_t*>(at_upper),
-        static_cast<int32_t*>(iters), static_cast<int32_t*>(work), M, NT, max_iter, max_loop);
+        &cfg, kern, static_cast<const float*>(W0), static_cast<const float*>(c),
+        static_cast<const float*>(lb), static_cast<const float*>(ub),
+        static_cast<const int32_t*>(basis0), static_cast<const uint8_t*>(at_upper0),
+        static_cast<int32_t*>(status), static_cast<int32_t*>(basis),
+        static_cast<uint8_t*>(at_upper), static_cast<int32_t*>(iters),
+        static_cast<int32_t*>(work), M, NT, max_iter, max_loop);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launch the spill variant, one kSpillC-CTA cluster per LP keeping `rows`
+// rows of each slice in shared memory, on ``stream``; Wsp is a
+// (B, M - rows, NT) float32 workspace (any valid pointer when rows == M).
+// Returns as group_simplex_cluster_f32.
+int group_simplex_spill_f32(const void* W0, const void* c, const void* lb, const void* ub,
+                            const void* basis0, const void* at_upper0, void* Wsp, void* status,
+                            void* basis, void* at_upper, void* iters, void* work, int B, int M,
+                            int NT, int rows, int max_iter, long long max_loop, void* stream) {
+  auto kern = group_simplex_spill_kernel<float>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config(kern, cluster_smem_bytes<float>(M, NT, kSpillC, rows), B,
+                                   kSpillC, static_cast<cudaStream_t>(stream), &cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (active < 1) return kNoClusterFits;
+  if (B > 0) {
+    err = cudaLaunchKernelEx(
+        &cfg, kern, static_cast<const float*>(W0), static_cast<const float*>(c),
+        static_cast<const float*>(lb), static_cast<const float*>(ub),
+        static_cast<const int32_t*>(basis0), static_cast<const uint8_t*>(at_upper0),
+        static_cast<float*>(Wsp), static_cast<int32_t*>(status), static_cast<int32_t*>(basis),
+        static_cast<uint8_t*>(at_upper), static_cast<int32_t*>(iters),
+        static_cast<int32_t*>(work), M, rows, NT, max_iter, max_loop);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

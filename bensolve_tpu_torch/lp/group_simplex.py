@@ -5,10 +5,12 @@ The port of ``bensolve_tpu/lp/pallas_simplex.py``.  The Pallas kernel
 there pivots a GROUP of LPs to termination with their tableaus held in
 VMEM; here ``csrc/group_simplex.cu`` gives every LP a thread-block
 cluster that holds its whole tableau in shared memory and loops over all
-its pivots inside one launch, or, for shapes no cluster holds, one
-thread block with the tableau in global memory (see the note at the top
-of that file for what bounds it on the H100).  ``plan`` picks the
-variant and the cluster size from the shape alone.
+its pivots inside one launch ("cluster"); for tableaux no cluster holds,
+a 16-CTA cluster that keeps as many rows as fit in shared memory and the
+rest in an L2-resident workspace ("spill"); for shapes neither takes, one
+thread block with the tableau in global memory ("global").  See the note
+at the top of that file for what bounds each on the H100.  ``plan``
+picks the variant and the cluster size from the shape alone.
 
 * ``solve_batch_group``: the wrapper.  It launches a CUDA kernel for
   CUDA tensors and runs the plain version only for CPU tensors.
@@ -40,13 +42,14 @@ TOL_PIV = 1e-6
 # run that should have gone through the kernel reads them
 CALLS = 0
 CALLS_CLUSTER = 0
+CALLS_SPILL = 0
 CALLS_GLOBAL = 0
 # lp_batch_group calls, on any device: the kernel's ROUTE was taken
 # (on the CPU that runs the plain version)
 ROUTED = 0
 
 # bytes allowed for one chunk's (B, Mp, NT) float32 tableau workspace
-# (the global-memory variant's)
+# (the global-memory variant's; the spill variant's is smaller)
 WORKSPACE_BYTES_BUDGET = 2 << 30
 # dynamic shared memory a block may use on the H100 (227 KB)
 SMEM_LIMIT = 232448
@@ -57,43 +60,72 @@ THREADS = 384
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # group_simplex_cluster_f32's return when no cluster of the size fits
 NO_CLUSTER_FITS = -2
+# the spill variant's cluster size and ring slots per thread (kSpillC,
+# kStages in csrc/group_simplex.cu)
+SPILL_C = 16
+SPILL_STAGES = 4
 
 
 def _pad128(x: int) -> int:
     return -(-x // 128) * 128
 
 
-def smem_bytes(Mp: int, NT: int, C: int) -> int:
+def smem_bytes(Mp: int, NT: int, C: int, rows: int | None = None) -> int:
     """Dynamic shared memory of one CTA, kept in step with
     group_simplex_smem_bytes_f32 in csrc/group_simplex.cu: of a C-CTA
-    cluster holding the tableau for C >= 1 (an (Mp, NT/C + 4) slice of
-    W; four mbarriers; two buffers of exchange entries, 16 bytes for each
-    warp of the cluster, and of the entering column's 64 bytes of values;
-    two column buffers of Mp; seven column and six row vectors; pricing
-    partials; reduction scratch; basis; two byte flags per column), of
-    the global-memory variant for C == 0."""
+    cluster for C >= 1 keeping ``rows`` rows of its slice in shared
+    memory (all Mp by default: the cluster variant; fewer: the spill
+    variant) (a (rows, NT/C + 4) slice of W; where rows are spilled, a
+    ring of SPILL_STAGES 16-byte slots per thread; four mbarriers; two
+    buffers of exchange entries, 16 bytes for each warp of the cluster,
+    and of the entering column's 64 bytes of values; two column buffers
+    of Mp; seven column and six row vectors; pricing partials; reduction
+    scratch; basis; two byte flags per column), of the global-memory
+    variant for C == 0."""
     if C == 0:
         return (7 * NT + 7 * Mp) * 4 + Mp * 4 + 2 * NT
+    rows = Mp if rows is None else rows
     S = NT // C
-    n_float = (Mp * (S + 4) + 2 * Mp + 7 * S + 6 * Mp + 4 * THREADS
+    n_float = (rows * (S + 4) + 2 * Mp + 7 * S + 6 * Mp + 4 * THREADS
                + 3 * 64)
+    ring = SPILL_STAGES * THREADS * 16 if rows < Mp else 0
     n_int = Mp + 3 * 96
     exchange = 4 * 8 + 2 * C * (THREADS // 32) * 16 + 2 * 64
-    return n_float * 4 + exchange + n_int * 4 + 2 * S
+    return n_float * 4 + ring + exchange + n_int * 4 + 2 * S
+
+
+def spill_rows(Mp: int, NT: int) -> int | None:
+    """Rows of the tableau the spill variant keeps in shared memory: all
+    Mp where a SPILL_C-CTA cluster holds them, else the largest multiple
+    of 4 that fits beside the ring and the vectors (0 included); None
+    where even those do not fit, or rows or slices are not in fours."""
+    if Mp % 4 or NT % (4 * SPILL_C):
+        return None
+    if smem_bytes(Mp, NT, SPILL_C) <= SMEM_LIMIT:
+        return Mp
+    free = SMEM_LIMIT - smem_bytes(Mp, NT, SPILL_C, rows=0)
+    if free < 0:
+        return None
+    return free // ((NT // SPILL_C + 4) * 4) // 4 * 4
 
 
 def plan(Mp: int, NT: int) -> tuple[str, int] | None:
     """The kernel variant for a padded shape: ("cluster", C) with the
     smallest C whose CTAs hold the tableau in shared memory, else
-    ("global", 0) when the global-memory variant takes it, else None.
-    The cluster variant moves rows and columns in groups of four, so it
-    needs Mp and NT / C divisible by 4 (padded shapes always are)."""
+    ("spill", SPILL_C) where the spill variant's vectors fit (its rows
+    from ``spill_rows``), else ("global", 0) when the global-memory
+    variant takes it, else None.  The cluster variants move rows and
+    columns in groups of four, so they need Mp and NT / C divisible by 4
+    (padded shapes always are)."""
     for C in CLUSTER_SIZES:
         if (Mp % 4 == 0 and NT % (4 * C) == 0
                 and smem_bytes(Mp, NT, C) <= SMEM_LIMIT):
             return "cluster", C
-    if (smem_bytes(Mp, NT, 0) <= SMEM_LIMIT
-            and Mp * NT * 4 <= WORKSPACE_BYTES_BUDGET):
+    if Mp * NT * 4 > WORKSPACE_BYTES_BUDGET:
+        return None
+    if spill_rows(Mp, NT) is not None:
+        return "spill", SPILL_C
+    if smem_bytes(Mp, NT, 0) <= SMEM_LIMIT:
         return "global", 0
     return None
 
@@ -146,7 +178,8 @@ def _check(W0, c, lb, ub, basis0, at_upper0):
 
 
 def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter, *,
-                      variant: str | None = None, work=None):
+                      variant: str | None = None, smem_rows: int | None = None,
+                      work=None):
     """Run the per-LP primal simplex over the batch.
 
     ``W0``: (Mp, NT) float32 shared starting tableau, E for a cold start
@@ -157,35 +190,49 @@ def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter, *,
     bool, iters (B,) int32) on the inputs' device.
 
     CUDA tensors launch the kernel variant ``plan`` picks (a failed
-    build or launch raises); ``variant="global"`` forces the global-
-    memory variant where it takes the shape, for measurement.  ``work``,
-    a (B, 3) int32 CUDA tensor, receives the cluster kernel's loop
-    steps, pricing passes and rank-1 updates per LP.  CPU tensors run
-    the plain version."""
-    global CALLS, CALLS_CLUSTER, CALLS_GLOBAL
+    build or launch raises); ``variant="spill"`` or ``"global"`` forces
+    that variant where it takes the shape, for measurement, and
+    ``smem_rows`` (spill only; a multiple of 4) the rows the spill
+    variant keeps in shared memory, by default ``spill_rows``.  ``work``,
+    a (B, 3) int32 CUDA tensor, receives the cluster or spill kernel's
+    loop steps, pricing passes and rank-1 updates per LP.  CPU tensors
+    run the plain version whatever the variant."""
+    global CALLS, CALLS_CLUSTER, CALLS_SPILL, CALLS_GLOBAL
     B, M, NT = _check(W0, c, lb, ub, basis0, at_upper0)
-    if variant not in (None, "global"):
+    if variant not in (None, "spill", "global"):
         raise ValueError(f"unknown kernel variant {variant!r}")
+    if smem_rows is not None and variant != "spill":
+        raise ValueError("smem_rows: for variant='spill' only")
     dev = W0.device
     if dev.type == "cpu":
         return solve_batch_group_reference(W0, c, lb, ub, basis0, at_upper0,
                                            max_iter, group=1)
     if dev.type != "cuda":
         raise ValueError(f"group simplex kernel: unsupported device {dev}")
-    chosen = ("global", 0) if variant == "global" else plan(M, NT)
-    if chosen is None or smem_bytes(M, NT, chosen[1]) > SMEM_LIMIT:
+    chosen = ((variant, SPILL_C if variant == "spill" else 0) if variant
+              else plan(M, NT))
+    rows = M
+    if chosen is not None and chosen[0] == "spill":
+        rows = spill_rows(M, NT) if smem_rows is None else int(smem_rows)
+        if rows is None or rows % 4 or not 0 <= rows <= M:
+            raise ValueError(f"spill variant: {rows} rows in shared memory "
+                             f"at Mp={M}, NT={NT} (a multiple of 4 in "
+                             f"[0, Mp] where its vectors fit)")
+    if (chosen is None
+            or smem_bytes(M, NT, chosen[1], rows) > SMEM_LIMIT):
         raise ValueError(f"group simplex kernel: no variant takes the shape "
-                         f"(Mp={M}, NT={NT})")
+                         f"(Mp={M}, NT={NT}, variant {chosen}, rows {rows})")
     kind, C = chosen
-    if work is not None and (kind != "cluster" or work.shape != (B, 3)
+    if work is not None and (kind == "global" or work.shape != (B, 3)
                              or work.dtype != torch.int32
                              or work.device != dev):
         raise ValueError("work: a (B, 3) int32 tensor on the inputs' device, "
-                         "for the cluster variant only")
-    if kind == "cluster" and W0.data_ptr() % 16:
+                         "for the cluster or spill variant")
+    if kind != "global" and W0.data_ptr() % 16:
         raise ValueError("W0 must be 16-byte aligned (vector loads)")
     lib = _library()
-    if lib.group_simplex_smem_bytes_f32(M, NT, C) != smem_bytes(M, NT, C):
+    if lib.group_simplex_smem_bytes_f32(M, NT, C, rows) != smem_bytes(
+            M, NT, C, rows):
         raise RuntimeError("smem_bytes disagrees with the built kernel's")
     with torch.cuda.device(dev):
         status = torch.empty(B, dtype=torch.int32, device=dev)
@@ -197,40 +244,56 @@ def solve_batch_group(W0, c, lb, ub, basis0, at_upper0, max_iter, *,
                 basis0.data_ptr(), at_upper0.data_ptr())
         outs = (status.data_ptr(), basis.data_ptr(), at_upper.data_ptr(),
                 iters.data_ptr())
+        work_p = 0 if work is None else work.data_ptr()
         loop = (int(max_iter), _max_loop(int(max_iter)), stream)
         if kind == "cluster":
-            err = lib.group_simplex_cluster_f32(
-                *ptrs, *outs, 0 if work is None else work.data_ptr(), B, M,
-                NT, C, *loop)
+            err = lib.group_simplex_cluster_f32(*ptrs, *outs, work_p, B, M,
+                                                NT, C, *loop)
+        elif kind == "spill":
+            # one (M - rows, NT) region per LP, in C slices of NT / C
+            Wsp = torch.empty(max(1, B * (M - rows) * NT),
+                              dtype=torch.float32, device=dev)
+            err = lib.group_simplex_spill_f32(*ptrs, Wsp.data_ptr(), *outs,
+                                              work_p, B, M, NT, rows, *loop)
         else:
             W = torch.empty((B, M, NT), dtype=torch.float32, device=dev)
             err = lib.group_simplex_global_f32(*ptrs, W.data_ptr(), *outs, B,
                                                M, NT, *loop)
         if err == NO_CLUSTER_FITS:
-            raise RuntimeError(f"group_simplex_cluster_f32: no cluster of {C} "
+            raise RuntimeError(f"group_simplex_{kind}_f32: no cluster of {C} "
                                f"CTAs fits the card at Mp={M}, NT={NT} "
                                f"(cudaOccupancyMaxActiveClusters is 0)")
         if err != 0:
             raise RuntimeError(f"group_simplex {kind} launch failed: CUDA "
-                               f"error {err} (B={B}, Mp={M}, NT={NT}, C={C})")
+                               f"error {err} (B={B}, Mp={M}, NT={NT}, C={C}, "
+                               f"rows={rows})")
         CALLS += 1
         if kind == "cluster":
             CALLS_CLUSTER += 1
+        elif kind == "spill":
+            CALLS_SPILL += 1
         else:
             CALLS_GLOBAL += 1
     return status, basis, at_upper, iters
 
 
-def max_active_clusters(Mp: int, NT: int, C: int) -> int:
+def max_active_clusters(Mp: int, NT: int, C: int,
+                        rows: int | None = None) -> int:
     """cudaOccupancyMaxActiveClusters of the cluster kernel with C-CTA
-    clusters at this shape."""
+    clusters at this shape, or with ``rows`` of the spill kernel's (C is
+    then SPILL_C)."""
     lib = _library()
     out = ctypes.c_int(0)
-    err = lib.group_simplex_max_active_clusters_f32(Mp, NT, C,
-                                                    ctypes.byref(out))
+    if rows is None:
+        err = lib.group_simplex_max_active_clusters_f32(Mp, NT, C,
+                                                        ctypes.byref(out))
+    else:
+        err = lib.group_simplex_spill_max_active_clusters_f32(
+            Mp, NT, rows, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
-                           f"error {err} (Mp={Mp}, NT={NT}, C={C})")
+                           f"error {err} (Mp={Mp}, NT={NT}, C={C}, "
+                           f"rows={rows})")
     return out.value
 
 
@@ -242,13 +305,18 @@ def _library():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.group_simplex_cluster_f32.argtypes = [p] * 11 + [i] * 5 + [ll, p]
         lib.group_simplex_cluster_f32.restype = ctypes.c_int
+        lib.group_simplex_spill_f32.argtypes = [p] * 12 + [i] * 5 + [ll, p]
+        lib.group_simplex_spill_f32.restype = ctypes.c_int
         lib.group_simplex_global_f32.argtypes = [p] * 11 + [i] * 4 + [ll, p]
         lib.group_simplex_global_f32.restype = ctypes.c_int
-        lib.group_simplex_smem_bytes_f32.argtypes = [i, i, i]
+        lib.group_simplex_smem_bytes_f32.argtypes = [i, i, i, i]
         lib.group_simplex_smem_bytes_f32.restype = ctypes.c_size_t
-        lib.group_simplex_max_active_clusters_f32.argtypes = [
-            i, i, i, ctypes.POINTER(ctypes.c_int)]
-        lib.group_simplex_max_active_clusters_f32.restype = ctypes.c_int
+        for name, n_int in (("group_simplex_max_active_clusters_f32", 3),
+                            ("group_simplex_spill_max_active_clusters_f32",
+                             3)):
+            getattr(lib, name).argtypes = [i] * n_int + [
+                ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = ctypes.c_int
         lib._bound = True
     return lib
 

@@ -7,21 +7,31 @@ Phases, one output line (or block) each:
 1. environment: torch/CUDA versions, the card's name and power limit,
    nvcc, triton, the native polytope engine; TF32 matmuls switched off;
 2. build: the per-LP simplex kernel from lp/csrc/group_simplex.cu, with
-   ptxas' registers and spills of both variants (cluster, global), their
-   shared-memory bytes and cudaOccupancyMaxActiveClusters at example10's
-   P2 shape;
+   ptxas' registers and spills of its three variants (cluster, spill,
+   global), their shared-memory bytes and cudaOccupancyMaxActiveClusters
+   at example10's P2 shape and at phase 4's spill shape (768, 1152);
 3. kernel vs its plain PyTorch version on the card: each variant at its
-   shape (clusters of 1, 2, 4, 8 and 16 CTAs, the global-memory variant
-   at M=N=700), cold, and shared-warm at M=N=16 and at example10's P2
-   shape (Mp=384, NT=768, B=256), where the cluster and the global
-   variant are also timed in turns on the same inputs (CUDA events) and
-   the roofline bound is computed from the cluster kernel's own counts
-   of pricing passes and rank-1 updates on the LP's unpadded tableau
-   (M rows, N + M columns); the same at the bench's device
-   shape (one launch: the first 256 of bench.make_instances(96, 96,
-   4096), Mp=96, NT=256, C=1);
+   shape (clusters of 1, 2, 4, 8 and 16 CTAs), cold, and shared-warm at
+   M=N=16 and at example10's P2 shape (Mp=384, NT=768, B=256), where the
+   cluster and the global variant are also timed in turns on the same
+   inputs (CUDA events) and the roofline bound is computed from the
+   cluster kernel's own counts of pricing passes and rank-1 updates on
+   the LP's unpadded tableau (M rows, N + M columns); the same at the
+   bench's device shape (one launch: the first 256 of
+   bench.make_instances(96, 96, 4096), Mp=96, NT=256, C=1); the spill
+   variant (16-CTA clusters, rows past shared memory in an L2-resident
+   workspace) against the plain version at the band shapes (768, 1152)
+   (B = 8 cold and shared-warm, B = 128 cold) and (768, 1536) (B = 8
+   cold), timed in turns with the global variant, with LPs per launch
+   and the bound from its own counts; the pair at config #4's f32 P2
+   shape (1024, 3072), above the band, cut at 1,000 pivots, where plan's
+   choice between them is made; and at M=N=500 (Mp=512, NT=1024, a 16-CTA
+   cluster holds it) the spill variant with 256 and with 512 rows in
+   shared memory against the cluster variant: status, basis, at_upper,
+   iterations and work counts equal on every LP, cold and shared-warm,
+   timed in turns, and the spill traffic's rate;
 4. the main path at float32 (the kernel's route): solve() on example01,
-   05, 08 and 10, with the launch counts of both variants reset just
+   05, 08 and 10, with the launch counts of the variants reset just
    before and read just after (per example), the kernel's share of the
    phase wall, and the support-function oracle at 1e-3; example10's
    float32 extreme directions against phase 5's float64 ones (phase 5
@@ -29,7 +39,8 @@ Phases, one output line (or block) each:
    than F32_DIR_DEG, printed, and every float32 direction in the cone of
    the float64 ones (NNLS residual at most 1e-4; ROADMAP Queue 3 m);
    then the same on random_vlp(q=2, m=700, n=256), whose LPs no cluster
-   holds: the global-memory variant's path, its launches counted alone;
+   holds: the spill variant's path, its launches and their LPs counted
+   alone;
 5. the main path at the default float64 (torch ops) on example10, held
    to the support oracle at 1e-4;
 6. the dual Benson algorithm (-A dual -a dual) at float64 on example10:
@@ -166,14 +177,17 @@ Phases, one output line (or block) each:
    and wall on a {"graft": ...} line before the kernels line;
 19. the result lines.
 
-The second-to-last line is one JSON object with the kernel's two
+The second-to-last line is one JSON object with the kernel's three
 variants (name, route, source, the TPU kernel it replaces, launches on
 its main path: the examples of phase 4 for the cluster variant, the
-large VLP of phase 4 for the global one; launches_dual_f32 in phase 7;
-launches_bench_device in phase 16's device stage; max |obj kernel -
-plain|, kernel, plain and bound times at example10's P2 shape, cold,
-and the kernel's time warm; the same at the bench's device shape under
-bench_shape); the line before it is phase 18's {"graft": ...}; the
+large VLP of phase 4 for the spill one, none for the global one, which
+no padded shape plans since the spill variant; launches_dual_f32 in
+phase 7; launches_bench_device in phase 16's device stage; max |obj
+kernel - plain|, kernel, plain and bound times: the cluster variant's at
+example10's P2 shape, cold, and its time warm, and at the bench's device
+shape under bench_shape; the spill and the global variant's at (768,
+1152), cold, B = 8, with every phase-3 shape of theirs under shapes);
+the line before it is phase 18's {"graft": ...}; the
 last line is {"ok": true, "device": {...}}.  Any
 failed phase raises and exits non-zero before those lines.  Without a
 CUDA device, or without the package beside this
@@ -210,8 +224,25 @@ DUAL_KW = dict(alg_phase1="dual", alg_phase2="dual")
 TALL = (2, 50, 500)
 # the large phase's VLP: its P2 and P1 LPs (705x259, 703x258) pad to
 # Mp=768, NT=1152, a 3.5 MB float32 tableau that no cluster holds, so
-# its kernel launches take the global-memory variant
+# its kernel launches take the spill variant
 LARGE = (2, 700, 256)
+LARGE_P2 = (705, 259)
+# phase 3's spill shapes, (name, M, N, B, warm too): phase 4's P2 LP,
+# padded (768, 1152), at 8 and 128 LPs per launch; M=N=700, padded (768,
+# 1536) (its shared-warm run, 23.6 s of plain version on an H100, is
+# left to tests/test_torch_cuda.py)
+SPILL_SHAPES = (("band (768, 1152)", 705, 259, 8, True),
+                ("band (768, 1152)", 705, 259, 128, False),
+                ("band (768, 1536)", 700, 700, 8, False))
+# above the band: config #4's f32 P2 LP, padded (1024, 3072), B LPs, where
+# plan's choice between spill and global is made; both cut at ABOVE_STEPS
+# pivots (to the end, the global variant took 157.3 s and the plain
+# version 97.0 s on an H100, the spill variant 2.77 s)
+ABOVE_BAND = (1011, 2006, 8)
+ABOVE_STEPS = 1000
+# phase 3's equality gate: a shape a 16-CTA cluster holds, padded (512,
+# 1024), with half its rows forced into the spill workspace
+SPILL_GATE = (500, 500, 8)
 KERNEL_SOURCE = "bensolve_tpu_torch/lp/csrc/group_simplex.cu"
 KERNEL_REPLACES = "bensolve_tpu/lp/pallas_simplex.py:55"
 REL_TOL = 1e-4       # float32 kernel vs plain: other summation orders
@@ -345,14 +376,15 @@ def phase_build():
     per_kernel, name = {}, None
     for ln in nvcc_log.splitlines():
         if "Compiling entry function" in ln:
-            name = ("cluster" if "group_simplex_cluster_kernel" in ln
+            name = ("spill" if "group_simplex_spill_kernel" in ln
+                    else "cluster" if "group_simplex_cluster_kernel" in ln
                     else "global")
-        elif name and ("registers" in ln or "spill" in ln):
+        elif name and ("registers" in ln or "spill stores" in ln):
             per_kernel.setdefault(name, []).append(ln.split(":", 1)[-1]
                                                    .strip())
     log(f"[build] group_simplex for sm_90a: nvcc {seconds:.1f} s, load "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in ("cluster", "global"):
+    for name in ("cluster", "spill", "global"):
         if name not in per_kernel:
             raise AssertionError(f"ptxas reported no {name} kernel")
         log(f"[build] {name} kernel: " + " | ".join(per_kernel[name]))
@@ -368,6 +400,18 @@ def phase_build():
         f"{Mp * NT * 4} B tableau per LP in global memory")
     if active < 1:
         raise AssertionError("no cluster fits at example10's P2 shape")
+    Mp, NT = gs.padded_shape(*LARGE_P2)
+    rows = gs.spill_rows(Mp, NT)
+    if gs.plan(Mp, NT) != ("spill", 16):
+        raise AssertionError(f"({Mp}, {NT}) plans {gs.plan(Mp, NT)}")
+    active = gs.max_active_clusters(Mp, NT, 16, rows=rows)
+    log(f"[build] phase 4's P2 LP (Mp={Mp}, NT={NT}): spill C=16, {rows} "
+        f"of {Mp} rows in shared memory, "
+        f"{gs.smem_bytes(Mp, NT, 16, rows)} B dynamic shared memory per "
+        f"CTA, {(Mp - rows) * NT * 4} B spilled per LP, "
+        f"cudaOccupancyMaxActiveClusters {active}")
+    if active < 1:
+        raise AssertionError("no spill cluster fits at phase 4's P2 shape")
 
 
 def _time_ms(fn, reps):
@@ -384,10 +428,23 @@ def _time_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def _event_ms(fn):
+    """(fn(), its CUDA-event milliseconds): one call, no warm-up."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def _launches():
     from bensolve_tpu_torch.lp import group_simplex as gs
 
-    return {"cluster": gs.CALLS_CLUSTER, "global": gs.CALLS_GLOBAL}
+    return {"cluster": gs.CALLS_CLUSTER, "spill": gs.CALLS_SPILL,
+            "global": gs.CALLS_GLOBAL}
 
 
 def _errors(name, ker, plain, same_basis):
@@ -435,9 +492,11 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
     """The kernel (the planned variant, or the forced one) and the plain
     version on the same device inputs: equal status per LP, obj / x /
     row_dual within REL_TOL relative, the launch on the expected variant,
-    timings.  With ``ab`` the two variants are timed in turns (cluster,
-    global, global, cluster) on these inputs and the roofline bound is
-    computed.  Returns a dict of the numbers."""
+    timings.  With ``ab`` the planned variant and the global one are
+    timed in turns (planned, global, planned) on these inputs, the global
+    launch also held to the plain version, and the roofline bound is
+    computed from the planned variant's own counts.
+    Returns a dict of the numbers."""
     from bensolve_tpu_torch.lp import group_simplex as gs
 
     dev = torch.device("cuda")
@@ -459,8 +518,7 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
     kind, C = ("global", 0) if variant else gs.plan(*W0.shape)
     after = _launches()
     launched = {k: after[k] - before[k] for k in after}
-    if launched != {"cluster": int(kind == "cluster"),
-                    "global": int(kind == "global")}:
+    if launched != {k: int(k == kind) for k in after}:
         raise AssertionError(f"{name}: launches {launched}, expected one "
                              f"{kind}")
     e0 = torch.cuda.Event(enable_timing=True)
@@ -492,7 +550,11 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
         gs.solve_batch_group(*inputs["a"], work=work)
         out["bound_ms"], out["bound_by"], steps, pass_share = _bound_ms(
             inputs["a"], work, *args[0].shape)
-        g_out = gs.solve_batch_group(*inputs["a"], variant="global")
+        # in turns (planned, global, planned): one global launch takes
+        # up to seconds, and it is the one held to the plain version
+        t1 = _time_ms(run, reps)
+        g_out, t_g = _event_ms(lambda: run("global"))
+        t2 = _time_ms(run, reps)
         g = _recover(gs, args, start_basis, *g_out, dev)
         if not (g.status == plain.status).all():
             raise AssertionError(f"{name}: global variant status "
@@ -500,22 +562,18 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
         out["err_global"] = _errors(name + " (global)", g, plain,
                                     (g.basis == plain.basis).all(axis=1)
                                     )["obj"][1]
-        runs = {"cluster": [], "global": []}
-        for v in ("cluster", "global", "global", "cluster"):
-            runs[v].append(_time_ms(lambda: run(None if v == "cluster"
-                                                else "global"),
-                                    reps if v == "cluster" else 1))
-        out["ms"] = float(np.mean(runs["cluster"]))
-        out["ms_global"] = float(np.mean(runs["global"]))
-        extra = (f"; in turns cluster {runs['cluster'][0]:.3f}, global "
-                 f"{runs['global'][0]:.3f}, {runs['global'][1]:.3f}, "
-                 f"cluster {runs['cluster'][1]:.3f} ms; global variant "
+        out["ms"] = (t1 + t2) / 2
+        out["ms_global"] = t_g
+        extra = (f"; in turns {kind} {t1:.3f}, global {t_g:.3f}, {kind} "
+                 f"{t2:.3f} ms ({kind} / global "
+                 f"{out['ms'] / out['ms_global']:.4f}); global variant "
                  f"status equal, obj within {out['err_global']:.1e}; "
                  f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}; mean "
                  f"loop steps {steps:.1f}, pricing passes on "
                  f"{pass_share:.3f} of steps) = "
-                 f"{out['bound_ms'] / out['ms']:.4f} of the cluster "
-                 f"kernel's time")
+                 f"{out['bound_ms'] / out['ms']:.4f} of the {kind} "
+                 f"kernel's time, {out['bound_ms'] / out['ms_global']:.4f} "
+                 f"of the global's")
     else:
         out["ms"] = _time_ms(run, reps)
     # the plain version's torch ops need no warm-up: where one call is
@@ -523,8 +581,12 @@ def _compare(name, args, start_basis, reps, variant=None, ab=False):
     out["plain_ms"] = (plain_ms if reps < 8 else _time_ms(
         lambda: gs.solve_batch_group_reference(*inputs["a"], group=1),
         reps // 4))
-    log(f"[kernel] {name}: {kind} C={C} B={B} Mp={W0.shape[0]} "
-        f"NT={W0.shape[1]} status equal on {B}/{B} LPs "
+    out["B"] = B
+    log(f"[kernel] {name}: {kind} C={C} B={B} LPs per launch "
+        f"Mp={W0.shape[0]} NT={W0.shape[1]}"
+        + (f" ({gs.spill_rows(*W0.shape)} rows in shared memory)"
+           if kind == "spill" else "")
+        + f"; status equal on {B}/{B} LPs "
         f"({int((ker.status == 1).sum())} optimal); rel err obj "
         f"{errs['obj'][0]:.1e} x {errs['x'][0]:.1e} row_dual "
         f"{errs['row_dual'][0]:.1e}; identical basis+iters on "
@@ -550,9 +612,9 @@ def _recover(gs, args, start_basis, status, basis, at_upper, iters, dev):
 
 def phase_kernel():
     """Each variant against the plain version at its shape; returns the
-    numbers at example10's P2 shape, cold and warm, the global variant's
-    obj error at its own shape, and the numbers at the bench's device
-    shape (one launch of 256 of its LPs)."""
+    numbers at example10's P2 shape, cold and warm, those of the spill
+    and the global variant at the spill shapes (by name), and the numbers
+    at the bench's device shape (one launch of 256 of its LPs)."""
     from bensolve_tpu_torch.lp import group_simplex as gs
 
     small = make_instances(16, 16, 8, 0)
@@ -563,7 +625,6 @@ def phase_kernel():
              (cold.basis[i0], cold.at_upper[i0]), 20)
     for M, B in ((160, 16), (200, 16), (500, 8)):
         _compare(f"M=N={M} cold", make_instances(M, M, B, 0), None, 3)
-    glob = _compare("M=N=700 cold", make_instances(700, 700, 4, 0), None, 1)
     big = make_instances(*EX10_P2, 256, 1)
     assert gs.padded_shape(*EX10_P2) == (384, 768)
     ex10 = _compare("ex10 P2 shape cold", big, None, 3, ab=True)
@@ -577,7 +638,166 @@ def phase_kernel():
     assert gs.padded_shape(*BENCH_LPS[:2]) == (96, 256)
     bench_shape = _compare("bench device shape cold (first 256 LPs)", bench,
                            None, 10, ab=True)
-    return ex10, ex10_w, glob, bench_shape
+    spill = {}
+    for name, M, N, B, warm in SPILL_SHAPES:
+        args = make_instances(M, N, B, 0)
+        if gs.plan(*gs.padded_shape(M, N)) != ("spill", 16):
+            raise AssertionError(f"{name}: plans "
+                                 f"{gs.plan(*gs.padded_shape(M, N))}")
+        key = f"{name} B={B}"
+        spill[f"{key} cold"] = _compare(f"{key} cold", args, None, 2,
+                                        ab=True)
+        if warm:
+            cold = gs.lp_batch_group(*args, device="cuda")
+            j0 = int(np.flatnonzero(cold.status == 1)[0])
+            spill[f"{key} shared warm"] = _compare(
+                f"{key} shared warm", args,
+                (cold.basis[j0], cold.at_upper[j0]), 2)
+    spill["above the band (1024, 3072)"] = _above_band()
+    _spill_gate()
+    return ex10, ex10_w, spill, bench_shape
+
+
+def _above_band():
+    """ABOVE_BAND's LPs (padded (1024, 3072)): the spill and the global
+    variant in turns (spill, global, spill), each cut at ABOVE_STEPS
+    pivots, with equal statuses and iterations per LP and ms per loop
+    step from the spill kernel's own counts: the times plan's choice
+    above the band rests on."""
+    from bensolve_tpu_torch.lp import group_simplex as gs
+
+    dev = torch.device("cuda")
+    args = make_instances(*ABOVE_BAND, 0)
+    inputs = {}
+    real = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        inputs["a"] = a
+        return real(*a, **kw)
+
+    gs.solve_batch_group = capture
+    try:
+        gs.lp_batch_group(*args, device=dev, max_iter=ABOVE_STEPS)
+    finally:
+        gs.solve_batch_group = real
+    a = inputs["a"]
+    Mp, NT = a[0].shape
+    B = a[1].shape[0]
+    if gs.plan(Mp, NT) != ("spill", 16):
+        raise AssertionError(f"({Mp}, {NT}) plans {gs.plan(Mp, NT)}")
+    work = torch.zeros(B, 3, dtype=torch.int32, device=dev)
+    s_out = [t.cpu() for t in gs.solve_batch_group(*a, work=work)]
+    bound, bound_by, steps, _ = _bound_ms(a, work, *args[0].shape)
+    t_s1 = _time_ms(lambda: gs.solve_batch_group(*a), 1)
+    g_out, t_g = _event_ms(lambda: gs.solve_batch_group(*a,
+                                                        variant="global"))
+    t_s2 = _time_ms(lambda: gs.solve_batch_group(*a), 1)
+    g_out = [t.cpu() for t in g_out]
+    for what, i in (("status", 0), ("iterations", 3)):
+        if not torch.equal(s_out[i], g_out[i]):
+            raise AssertionError(f"above the band: {what} spill "
+                                 f"{s_out[i].tolist()} global "
+                                 f"{g_out[i].tolist()}")
+    ms = (t_s1 + t_s2) / 2
+    log(f"[kernel] above the band (Mp={Mp}, NT={NT}): spill C=16 "
+        f"({gs.spill_rows(Mp, NT)} rows in shared memory, "
+        f"{(Mp - gs.spill_rows(Mp, NT)) * NT * 4} B spilled per LP) and "
+        f"global, B={B} LPs per launch cut at {ABOVE_STEPS} pivots "
+        f"(statuses {s_out[0].tolist()} and iterations equal); in turns "
+        f"spill {t_s1:.3f}, global {t_g:.3f}, spill {t_s2:.3f} ms (spill / "
+        f"global {ms / t_g:.4f}); mean loop steps {steps:.1f}: "
+        f"{ms / steps * 1e3:.2f} us per step spill, "
+        f"{t_g / steps * 1e3:.2f} global; bound {bound:.3f} ms "
+        f"({bound_by}) = {bound / ms:.4f} of the spill kernel's time, "
+        f"{bound / t_g:.4f} of the global's")
+    return {"C": 16, "B": B, "ms": ms, "ms_global": t_g, "plain_ms": None,
+            "bound_ms": bound, "bound_by": bound_by, "err": None,
+            "err_global": None}
+
+
+def _spill_gate():
+    """At SPILL_GATE's shape, which a 16-CTA cluster holds: the spill
+    variant with half the rows and with all of them in shared memory
+    against the cluster variant, cold and from one shared warm basis:
+    status, basis, at_upper, iterations and work counts equal on every
+    LP.  Cold, the three are timed in turns, and the spill traffic of the
+    half-spilled launch (each rank-1 update reads and writes the spilled
+    rows, each pricing pass and the initial sums read them) over its
+    extra time gives the rate the workspace was streamed at."""
+    from bensolve_tpu_torch.lp import group_simplex as gs
+
+    dev = torch.device("cuda")
+    args = make_instances(*SPILL_GATE, 3)
+    starts = [None]
+    cold = gs.lp_batch_group(*args, device=dev)
+    j0 = int(np.flatnonzero(cold.status == 1)[0])
+    starts.append((cold.basis[j0], cold.at_upper[j0]))
+    for start in starts:
+        inputs = {}
+        real = gs.solve_batch_group
+
+        def capture(*a, **kw):
+            inputs["a"] = a
+            return real(*a, **kw)
+
+        gs.solve_batch_group = capture
+        try:
+            gs.lp_batch_group(*args, start_basis=start, device=dev)
+        finally:
+            gs.solve_batch_group = real
+        a = inputs["a"]
+        Mp, NT = a[0].shape
+        B = a[1].shape[0]
+        if gs.plan(Mp, NT) != ("cluster", 16):
+            raise AssertionError(f"spill gate: ({Mp}, {NT}) plans "
+                                 f"{gs.plan(Mp, NT)}")
+
+        def run(**kw):
+            work = torch.zeros(B, 3, dtype=torch.int32, device=dev)
+            out = gs.solve_batch_group(*a, work=work, **kw)
+            return [t.cpu() for t in out] + [work.cpu()]
+
+        ref = run()
+        half = Mp // 2
+        for rows in (half, Mp):
+            got = run(variant="spill", smem_rows=rows)
+            for what, x, y in zip(("status", "basis", "at_upper", "iters",
+                                   "work"), got, ref):
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"spill gate ({'warm' if start else 'cold'}): "
+                        f"{what} differs from the cluster variant's with "
+                        f"{rows} of {Mp} rows in shared memory")
+        steps, passes, pivots = ref[4].numpy().astype(np.int64).T
+        line = (f"[kernel] spill gate M=N={SPILL_GATE[0]} (Mp={Mp}, "
+                f"NT={NT}, B={B}) {'shared warm' if start else 'cold'}: "
+                f"spill with {half} and with {Mp} of {Mp} rows in shared "
+                f"memory gives the cluster variant's status, basis, "
+                f"at_upper, iterations and work counts on {B}/{B} LPs "
+                f"(statuses {ref[0].tolist()}, iterations "
+                f"{ref[3].tolist()})")
+        if start is None:
+            order = (("cluster", {}), ("spill 0 rows out",
+                                       dict(variant="spill", smem_rows=Mp)),
+                     ("spill half out", dict(variant="spill",
+                                             smem_rows=half)))
+            times = {k: [] for k, _ in order}
+            for k, kw in order + order[::-1]:
+                times[k].append(_time_ms(
+                    lambda: gs.solve_batch_group(*a, **kw), 3))
+            ms = {k: float(np.mean(v)) for k, v in times.items()}
+            moved = float((2 + passes + 2 * pivots).sum()) * (
+                (Mp - half) * NT * 4)
+            extra = ms["spill half out"] - ms["spill 0 rows out"]
+            line += ("; in turns " + ", ".join(
+                f"{k} {v[0]:.3f}" for k, v in times.items()) + ", " +
+                ", ".join(f"{k} {v[1]:.3f}" for k, v in
+                          reversed(list(times.items()))) +
+                f" ms; the half-spilled launch moves {moved / 1e9:.3f} GB "
+                f"of workspace in {extra:.3f} ms more than the unspilled "
+                f"one: {moved / max(extra, 1e-9) / 1e6:.0f} GB/s (HBM "
+                f"{HBM_BYTES_PER_S / 1e9:.0f} GB/s); {smi_line()}")
+        log(line)
 
 
 def _options(**kw):
@@ -630,14 +850,14 @@ def _report(tag, name, r, wall, tol):
 
 class _KernelClock:
     """Wraps the kernel's wrapper with CUDA events around every launch
-    and resets the launch counts of both variants; ``launches`` holds
-    them per solve."""
+    and resets the launch counts of the variants; ``launches`` holds
+    them per solve, ``lps`` the LPs of every launch."""
 
     def __init__(self):
         from bensolve_tpu_torch.lp import group_simplex as gs
 
         self.gs, self.real, self.events = gs, gs.solve_batch_group, []
-        self.launches = {}
+        self.launches, self.lps = {}, []
 
     def __enter__(self):
         def timed(*a, **kw):
@@ -647,10 +867,12 @@ class _KernelClock:
             out = self.real(*a, **kw)
             t1.record()
             self.events.append((t0, t1))
+            self.lps.append(int(a[1].shape[0]))
             return out
 
         self.gs.solve_batch_group = timed
-        self.gs.CALLS = self.gs.CALLS_CLUSTER = self.gs.CALLS_GLOBAL = 0
+        self.gs.CALLS = self.gs.CALLS_CLUSTER = 0
+        self.gs.CALLS_SPILL = self.gs.CALLS_GLOBAL = 0
         return self
 
     def __exit__(self, *exc):
@@ -669,22 +891,25 @@ class _KernelClock:
 
     def total(self):
         return {k: sum(v[k] for v in self.launches.values())
-                for k in ("cluster", "global")}
+                for k in ("cluster", "spill", "global")}
 
     def report(self, tag, phase_wall, variant="cluster"):
         kernel_s = self.seconds()
-        per = "; ".join(f"{n} {v['cluster']}/{v['global']}"
+        per = "; ".join(f"{n} {v['cluster']}/{v['spill']}/{v['global']}"
                         for n, v in self.launches.items())
         tot = self.total()
-        log(f"[{tag}] group_simplex launches cluster/global: {per}; total "
-            f"{tot['cluster']}/{tot['global']} (CALLS {self.gs.CALLS}); "
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        log(f"[{tag}] group_simplex launches cluster/spill/global: {per}; "
+            f"total {tot['cluster']}/{tot['spill']}/{tot['global']} (CALLS "
+            f"{self.gs.CALLS}); LPs per launch {self.lps}; ms per launch "
+            f"{[round(t, 3) for t in ms] if len(ms) <= 16 else '...'}; "
             f"kernel {kernel_s:.3f} s of {phase_wall:.2f} s phase wall "
             f"({kernel_s / phase_wall:.3f}, CUDA events around the "
             f"launches)")
         if tot[variant] <= 0:
             raise AssertionError(f"{tag}: the {variant} kernel was launched "
                                  f"0 times")
-        if self.gs.CALLS != tot["cluster"] + tot["global"]:
+        if self.gs.CALLS != sum(tot.values()):
             raise AssertionError(f"{tag}: CALLS is not the variants' sum")
         return tot
 
@@ -783,7 +1008,7 @@ def phase_large_f32():
 
     q, m, n = LARGE
     for shape in ((m + 2 * q + 1, n + q + 1), (m + q + 1, n + q)):
-        if gs.plan(*gs.padded_shape(*shape)) != ("global", 0):
+        if gs.plan(*gs.padded_shape(*shape)) != ("spill", 16):
             raise AssertionError(f"large phase: LP {shape} plans "
                                  f"{gs.plan(*gs.padded_shape(*shape))}")
     name = f"random_vlp(q={q}, m={m}, n={n})"
@@ -791,7 +1016,7 @@ def phase_large_f32():
         r, wall = clock.solve(name, _options(**F32_KW),
                               vlp=examples.random_vlp(q=q, m=m, n=n))
     _report("large f32", name, r, wall, 1e-3)
-    return clock.report("large f32", wall, variant="global")
+    return clock.report("large f32", wall, variant="spill")
 
 
 def phase_main_f64():
@@ -2073,7 +2298,7 @@ def main() -> int:
         _log_total(t_start)
         return 0
     _timed("2", phase_build)
-    ex10, ex10_w, glob, bench_shape = _timed("3", phase_kernel)
+    ex10, ex10_w, spill, bench_shape = _timed("3", phase_kernel)
     # phase 5 first: phase 4 holds its float32 directions to its run
     primal = _timed("5", phase_main_f64)
     launches = _timed("4", phase_main_f32)
@@ -2094,26 +2319,47 @@ def main() -> int:
     _log_total(t_start)
     log(smi_line())
     log(json.dumps({"graft": graft}))
-    common = {"route": "cuda", "source": KERNEL_SOURCE,
-              "replaces": KERNEL_REPLACES, "plain_ms": ex10["plain_ms"],
-              "bound_ms": ex10["bound_ms"], "bound_by": ex10["bound_by"],
-              "library_ms": None}
+    base = {"route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES, "library_ms": None}
     bench_launches = bench_line["device_kernel_launches"]
+    band = spill["band (768, 1152) B=8 cold"]
+    band_w = spill["band (768, 1152) B=8 shared warm"]
+    ab = [v for v in spill.values() if "ms_global" in v]
+
+    def launch_counts(kind):
+        return dict(launches=launches_large[kind] if kind == "spill"
+                    else launches[kind],
+                    launches_f32_examples=launches[kind],
+                    launches_large_f32=launches_large[kind],
+                    launches_dual_f32=launches_dual[kind],
+                    launches_bench_device=bench_launches[kind])
+
     log(json.dumps({"kernels": [
-        dict(name="group_simplex_cluster", **common,
-             launches=launches["cluster"],
-             launches_dual_f32=launches_dual["cluster"],
-             launches_bench_device=bench_launches["cluster"],
+        dict(name="group_simplex_cluster", **base, **launch_counts("cluster"),
              cluster_size=ex10["C"], max_abs_err=ex10["err"],
              ms=ex10["ms"], ms_warm=ex10_w["ms"],
+             plain_ms=ex10["plain_ms"], bound_ms=ex10["bound_ms"],
+             bound_by=ex10["bound_by"],
              bench_shape=_shape_numbers(bench_shape, "ms")),
-        dict(name="group_simplex_global", **common,
-             launches=launches_large["global"],
-             launches_f32_examples=launches["global"],
-             launches_dual_f32=launches_dual["global"],
-             launches_bench_device=bench_launches["global"],
-             max_abs_err=max(ex10["err_global"], glob["err"]),
-             ms=ex10["ms_global"], ms_warm=ex10_w["ms_global"],
+        dict(name="group_simplex_spill", **base, **launch_counts("spill"),
+             cluster_size=16, max_abs_err=max(
+                 v["err"] for v in spill.values() if v["err"] is not None),
+             ms=band["ms"], ms_warm=band_w["ms"], plain_ms=band["plain_ms"],
+             bound_ms=band["bound_ms"], bound_by=band["bound_by"],
+             shapes={k: _shape_numbers(v, "ms") for k, v in spill.items()}),
+        dict(name="group_simplex_global", **base, **launch_counts("global"),
+             max_abs_err=max([ex10["err_global"], ex10_w["err_global"],
+                              bench_shape["err_global"]]
+                             + [v["err_global"] for v in ab
+                                if v["err_global"] is not None]),
+             ms=band["ms_global"], plain_ms=band["plain_ms"],
+             bound_ms=band["bound_ms"], bound_by=band["bound_by"],
+             shapes={k: _shape_numbers(v, "ms_global") for k, v in
+                     spill.items() if "ms_global" in v},
+             ex10_shape=dict(ms=ex10["ms_global"],
+                             ms_warm=ex10_w["ms_global"],
+                             plain_ms=ex10["plain_ms"],
+                             bound_ms=ex10["bound_ms"]),
              bench_shape=_shape_numbers(bench_shape, "ms_global"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2122,13 +2368,21 @@ def main() -> int:
 
 
 def _shape_numbers(out, ms_key):
-    """A variant's numbers at the bench's device shape (phase 3)."""
-    return {"C": out["C"], "ms": out[ms_key], "plain_ms": out["plain_ms"],
-            "bound_ms": out["bound_ms"], "bound_by": out["bound_by"],
+    """A variant's numbers at one phase-3 shape: its time (``ms_key``),
+    the plain version's, the bound and LPs per launch where measured."""
+    return {"C": out["C"] if ms_key == "ms" else 0, "B": out["B"],
+            "ms": out[ms_key], "plain_ms": out["plain_ms"],
+            "bound_ms": out.get("bound_ms"), "bound_by": out.get("bound_by"),
             "max_abs_err": out["err" if ms_key == "ms" else "err_global"]}
 
 
-PHASES = {"2": phase_build, "3": phase_kernel, "4": phase_main_f32,
+def _phase_4():
+    """Phase 4 alone (--only 4): the examples, then the large VLP."""
+    phase_main_f32()
+    phase_large_f32()
+
+
+PHASES = {"2": phase_build, "3": phase_kernel, "4": _phase_4,
           "5": phase_main_f64, "7": phase_dual_f32, "8": phase_tall,
           "9": phase_revised_vs_cpu, "10": phase_ipm_config4,
           "11": phase_ipm_e2e,

@@ -126,7 +126,8 @@ def test_bench_cli_on_the_cpu_prints_every_key():
     assert line["p2_host_fallback_cap"] == 32
     assert len(line["p2_host_bound"]) == 2
     assert line["device"] == "cpu"
-    assert line["device_kernel_launches"] == {"cluster": 0, "global": 0}
+    assert line["device_kernel_launches"] == {"cluster": 0, "spill": 0,
+                                              "global": 0}
     assert line["ex11_lps"] == 679 and line["ex11_rounds"] == 16
     assert line["many_instances"] == 10
 

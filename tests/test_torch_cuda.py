@@ -1,6 +1,8 @@
-"""The port on the card: the CUDA kernel's two variants build, launch
+"""The port on the card: the CUDA kernel's three variants build, launch
 on the main path (primal and dual algorithm) and agree with their plain
-PyTorch version at one shape per variant and cluster size; the revised
+PyTorch version at one shape per variant and cluster size; the spill
+variant with half the rows forced out of shared memory pivots exactly as
+the cluster variant; the revised
 simplex and the interior-point method give on the card what they give on
 the CPU, with TF32 off; lp_ipm_min takes a float32 solve past the
 kernel's route to the interior-point method; a per-instance-matrix LP
@@ -53,30 +55,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (M, N, B, variant, C): one shape per kernel variant and cluster size;
-# (350, 347) is example10's P2 shape
-VARIANT_SHAPES = [(16, 16, 8, "cluster", 1), (160, 160, 16, "cluster", 2),
-                  (200, 200, 16, "cluster", 4), (350, 347, 16, "cluster", 8),
-                  (500, 500, 8, "cluster", 16), (700, 700, 4, "global", 0)]
+# (M, N, B, variant, C, forced): one shape per kernel variant and cluster
+# size, the planned one unless forced; (350, 347) is example10's P2 shape,
+# (705, 259) phase 4's large P2 LP (padded 768 x 1152), (700, 700) pads to
+# 768 x 1536; the global variant, which no band shape plans any more,
+# forced at the latter
+VARIANT_SHAPES = [(16, 16, 8, "cluster", 1, False),
+                  (160, 160, 16, "cluster", 2, False),
+                  (200, 200, 16, "cluster", 4, False),
+                  (350, 347, 16, "cluster", 8, False),
+                  (500, 500, 8, "cluster", 16, False),
+                  (700, 700, 4, "spill", 16, False),
+                  (705, 259, 8, "spill", 16, False),
+                  (700, 700, 4, "global", 0, True)]
 
 
-def _kernel_and_plain(args, start, dev, monkeypatch):
-    """The kernel's LPResult and the plain version's, the latter run on
-    the same device inputs and recovered exactly as the wrapper does;
-    plus the launches of each variant during the kernel's solve."""
+def _counts():
+    return (gs.CALLS_CLUSTER, gs.CALLS_SPILL, gs.CALLS_GLOBAL, gs.CALLS)
+
+
+def _kernel_and_plain(args, start, dev, monkeypatch, variant=None):
+    """The kernel's LPResult (the planned variant, or the forced one) and
+    the plain version's, the latter run on the same device inputs and
+    recovered exactly as the wrapper does; plus the launches of each
+    variant (cluster, spill, global, all) during the kernel's solve."""
     captured = {}
     real = gs.solve_batch_group
 
     def capture(*a, **kw):
         captured["a"] = a
-        return real(*a, **kw)
+        return real(*a, variant=variant, **kw)
 
     monkeypatch.setattr(gs, "solve_batch_group", capture)
-    before = (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL, gs.CALLS)
+    before = _counts()
     ker = gs.lp_batch_group(*args, device=dev, start_basis=start)
     torch.cuda.synchronize()
-    launched = tuple(x - y for x, y in zip(
-        (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL, gs.CALLS), before))
+    launched = tuple(x - y for x, y in zip(_counts(), before))
     out = gs.solve_batch_group_reference(*captured["a"], group=1)
     monkeypatch.setattr(gs, "solve_batch_group", lambda *a, **kw: out)
     plain = gs.lp_batch_group(*args, device=dev, start_basis=start)
@@ -86,26 +100,29 @@ def _kernel_and_plain(args, start, dev, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("warm", [False, True])
-@pytest.mark.parametrize("shape", VARIANT_SHAPES,
-                         ids=[f"{v}{c}-M{m}" for m, _, _, v, c in VARIANT_SHAPES])
+@pytest.mark.parametrize(
+    "shape", VARIANT_SHAPES,
+    ids=[f"{v}{c}-M{m}-N{n}" for m, n, _, v, c, _ in VARIANT_SHAPES])
 def test_kernel_matches_plain_version_on_card(cuda_device, shape, warm,
                                               monkeypatch):
     """Each variant against the plain version on its shape, cold and from
     one shared warm basis: equal status per LP; obj within 1e-4 (float32,
     the kernel and the plain version sum in other orders); at M=N=16
     (sequential sums) the same basis and iterations on every LP.  The
-    launch lands on the planned variant and only there."""
-    M, N, B, kind, C = shape
-    assert gs.plan(*gs.padded_shape(M, N)) == (kind, C)
+    launch lands on the planned (or forced) variant and only there."""
+    M, N, B, kind, C, forced = shape
+    if not forced:
+        assert gs.plan(*gs.padded_shape(M, N)) == (kind, C)
     args = make(M, N, B, seed=0)
     start = None
     if warm:
         cold = gs.lp_batch_group(*args, device=cuda_device)
         i0 = int(np.flatnonzero(cold.status == OPTIMAL)[0])
         start = (cold.basis[i0], cold.at_upper[i0])
-    ker, plain, launched = _kernel_and_plain(args, start, cuda_device,
-                                             monkeypatch)
-    assert launched == ((1, 0, 1) if kind == "cluster" else (0, 1, 1))
+    ker, plain, launched = _kernel_and_plain(
+        args, start, cuda_device, monkeypatch, kind if forced else None)
+    assert launched == {"cluster": (1, 0, 0, 1), "spill": (0, 1, 0, 1),
+                        "global": (0, 0, 1, 1)}[kind]
     np.testing.assert_array_equal(ker.status, plain.status)
     ok = plain.status == OPTIMAL
     assert ok.any()
@@ -140,6 +157,54 @@ def test_work_counts_on_card(cuda_device, monkeypatch):
     assert (pivots <= iters).all() and (iters <= steps).all()
     assert (pivots > 0).all()
     assert (passes >= -(-steps // 128)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_spill_with_half_the_rows_pivots_as_the_cluster(cuda_device, warm,
+                                                        monkeypatch):
+    """At M = N = 500 (Mp 512, NT 1024: a 16-CTA cluster holds it) the
+    spill variant with 256 rows in shared memory and 256 in its workspace,
+    and with all 512 in shared memory, gives the cluster variant's status,
+    basis, at_upper, iterations and work counts exactly on every LP, cold
+    and from one shared warm basis: the spill changes where rows live,
+    never a sum's order."""
+    args = make(500, 500, 8, seed=3)
+    start = None
+    if warm:
+        cold = gs.lp_batch_group(*args, device=cuda_device)
+        i0 = int(np.flatnonzero(cold.status == OPTIMAL)[0])
+        start = (cold.basis[i0], cold.at_upper[i0])
+    captured = {}
+    real = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        captured["a"] = a
+        return real(*a, **kw)
+
+    monkeypatch.setattr(gs, "solve_batch_group", capture)
+    gs.lp_batch_group(*args, device=cuda_device, start_basis=start)
+    monkeypatch.setattr(gs, "solve_batch_group", real)
+    a = captured["a"]
+    Mp = a[0].shape[0]
+    assert (Mp, a[0].shape[1]) == (512, 1024)
+    assert gs.plan(*a[0].shape) == ("cluster", 16)
+
+    def run(**kw):
+        work = torch.zeros(a[1].shape[0], 3, dtype=torch.int32,
+                           device=cuda_device)
+        out = gs.solve_batch_group(*a, work=work, **kw)
+        return [t.cpu() for t in out] + [work.cpu()]
+
+    ref = run()
+    before = _counts()
+    for rows in (Mp // 2, Mp):
+        got = run(variant="spill", smem_rows=rows)
+        for name, x, y in zip(("status", "basis", "at_upper", "iters",
+                               "work"), got, ref):
+            assert torch.equal(x, y), f"{name} differs at {rows} rows"
+    assert tuple(x - y for x, y in zip(_counts(), before)) == (0, 2, 0, 2)
+    assert (ref[0] == OPTIMAL).any() and (ref[3] > 0).any()
 
 
 @pytest.mark.cuda
@@ -395,7 +460,7 @@ def test_bench_device_stage_launches_the_kernel(cuda_device):
 
     assert gs.plan(*gs.padded_shape(96, 96)) == ("cluster", 1)
     out = bench.run_device("cuda", 96, 96, 256, reps=1)
-    assert out["launches"] == {"cluster": 2, "global": 0}
+    assert out["launches"] == {"cluster": 2, "spill": 0, "global": 0}
     bench.run_serial(out["inputs"], 8, out["obj"])
 
 
@@ -415,7 +480,7 @@ def test_graft_entry_on_card_matches_cpu(cuda_device):
     for i in (0, 6, 7):
         np.testing.assert_array_equal(got[i], ref[i])
     np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-5)
-    before = (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL)
+    before = _counts()
     rec = ge.dryrun_multichip(4, "cuda")
     assert rec["shape"] == {"dp": 2, "tp": 2}
     batches = ge.step_inputs(rec["dp"])
@@ -423,4 +488,4 @@ def test_graft_entry_on_card_matches_cpu(cuda_device):
         one = ge.solve_unsharded(*batches[step["step"]], device="cuda")
         for k, i in (("status", 0), ("iters", 6), ("basis", 7)):
             np.testing.assert_array_equal(step[k], one[i], err_msg=k)
-    assert (gs.CALLS_CLUSTER, gs.CALLS_GLOBAL) == before
+    assert _counts() == before

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from bensolve_tpu.lp import simplex as jsx
+from bensolve_tpu.lp import pallas_simplex
 from bensolve_tpu.lp.pallas_simplex import lp_batch_pallas
-from bensolve_tpu_torch.lp import _kernel_eligible
+from bensolve_tpu_torch.lp import REVISED_RATIO, _kernel_eligible
 from bensolve_tpu_torch.lp import group_simplex as gs
 from tests.test_pallas_simplex import make
 
@@ -147,7 +148,7 @@ def _example_lp_shape(name, which):
 # (M, N) or an example's LP -> (variant, cluster size)
 PLANS = [((16, 16), ("cluster", 1)), ((160, 160), ("cluster", 2)),
          ((200, 200), ("cluster", 4)), ((350, 347), ("cluster", 8)),
-         ((500, 500), ("cluster", 16)), ((700, 700), ("global", 0)),
+         ((500, 500), ("cluster", 16)), ((700, 700), ("spill", 16)),
          (("example01", "P2"), ("cluster", 1)),
          (("example01", "P1"), ("cluster", 1)),
          (("example05", "P2"), ("cluster", 1)),
@@ -165,13 +166,16 @@ def test_plan_by_shape(shape, expected):
     Mp, NT = gs.padded_shape(M, N)
     assert gs.plan(Mp, NT) == expected
     kind, C = expected
-    assert gs.smem_bytes(Mp, NT, C) <= gs.SMEM_LIMIT
+    rows = gs.spill_rows(Mp, NT) if kind == "spill" else None
+    assert gs.smem_bytes(Mp, NT, C, rows) <= gs.SMEM_LIMIT
     if kind == "cluster" and C > 1:
         # the smallest cluster that holds the tableau
         assert gs.smem_bytes(Mp, NT, C // 2) > gs.SMEM_LIMIT
-    if kind == "global":
+    if kind in ("spill", "global"):
         assert all(gs.smem_bytes(Mp, NT, k) > gs.SMEM_LIMIT
                    for k in gs.CLUSTER_SIZES)
+    if kind == "spill":
+        assert 0 <= rows < Mp
 
 
 def test_rows_or_slices_not_in_fours_take_the_global_variant():
@@ -201,7 +205,9 @@ def test_planned_bytes_fit_and_old_shapes_stay_supported(M):
         Mp, NT = gs.padded_shape(M, N)
         planned = gs.plan(Mp, NT)
         if planned is not None:
-            assert gs.smem_bytes(Mp, NT, planned[1]) <= gs.SMEM_LIMIT
+            rows = (gs.spill_rows(Mp, NT) if planned[0] == "spill"
+                    else None)
+            assert gs.smem_bytes(Mp, NT, planned[1], rows) <= gs.SMEM_LIMIT
         if _old_shape_supported(M, N):
             assert gs.shape_supported(M, N) and planned is not None
 
@@ -216,3 +222,104 @@ def test_wrapper_takes_a_forced_variant_and_rejects_an_unknown_one():
     assert status.shape == (2,)
     with pytest.raises(ValueError, match="variant"):
         gs.solve_batch_group(*args, variant="nope")
+
+
+def _gate_shapes():
+    """Every padded shape an LP with N < REVISED_RATIO * M and M < 1100
+    reaches (the LPs the router can send to a kernel) that the JAX
+    package's Pallas gate takes, as {(Mp, NT): (M, N)}: per row bucket
+    its largest M, per column bucket its smallest N."""
+    top = {gs.padded_shape(M, 1)[0]: M for M in range(1, 1100)}
+    shapes = {}
+    for Mp, M in top.items():
+        N = 1
+        while N < REVISED_RATIO * M:
+            shapes.setdefault(gs.padded_shape(M, N), (M, N))
+            N = gs.padded_shape(M, N)[1] - Mp + 1
+    return {s: mn for s, mn in sorted(shapes.items())
+            if pallas_simplex.shape_supported(*mn)}
+
+
+GATE_SHAPES = _gate_shapes()
+# the shapes among them that no cluster holds (2.8-6.1 MiB per LP)
+BAND = [s for s in GATE_SHAPES
+        if all(gs.smem_bytes(*s, C) > gs.SMEM_LIMIT for C in gs.CLUSTER_SIZES)]
+
+
+def test_gate_shapes_and_band():
+    """136 padded shapes, 35 of them in the band from (448, 1792) to
+    (1024, 1536), each a tableau of 2.8-6.1 MiB."""
+    assert len(GATE_SHAPES) == 136 and len(BAND) == 35
+    assert (BAND[0], BAND[-1]) == ((448, 1792), (1024, 1536))
+    mib = [Mp * NT * 4 / 2 ** 20 for Mp, NT in BAND]
+    assert 2.8 <= min(mib) and max(mib) <= 6.2
+    # phase 4's large VLP (P2 705x259) and M=N=700 of phase 3
+    assert gs.padded_shape(705, 259) in BAND
+    assert gs.padded_shape(700, 700) in BAND
+
+
+@pytest.mark.parametrize("shape", list(GATE_SHAPES),
+                         ids=[f"{a}x{b}" for a, b in GATE_SHAPES])
+def test_every_gate_shape_plans_a_cluster_or_the_spill(shape):
+    """Where the JAX package keeps the tableau on chip, the port keeps it
+    in a cluster's shared memory, whole or with a spill: never the
+    global-memory variant, never no kernel."""
+    kind, C = gs.plan(*shape)
+    assert (kind == "spill") == (shape in BAND)
+    assert kind in ("cluster", "spill") and C >= 1
+    assert gs.shape_supported(*GATE_SHAPES[shape])
+
+
+@pytest.mark.parametrize("shape", BAND, ids=[f"{a}x{b}" for a, b in BAND])
+def test_spill_rows_fit_in_fours(shape):
+    """On every band shape the spill variant keeps R rows, a multiple of
+    4 (0 allowed), beside its ring and vectors within a block's limit;
+    four rows more would not fit."""
+    Mp, NT = shape
+    R = gs.spill_rows(Mp, NT)
+    assert R is not None and R % 4 == 0 and 0 <= R < Mp
+    assert gs.smem_bytes(Mp, NT, gs.SPILL_C, R) <= gs.SMEM_LIMIT
+    assert gs.smem_bytes(Mp, NT, gs.SPILL_C, R + 4) > gs.SMEM_LIMIT
+    assert gs.smem_bytes(Mp, NT, gs.SPILL_C, 0) <= gs.SMEM_LIMIT
+    # the ring is there only where rows are spilled
+    assert (gs.smem_bytes(Mp, NT, gs.SPILL_C, R)
+            - gs.smem_bytes(Mp, NT, gs.SPILL_C, Mp)
+            == gs.SPILL_STAGES * gs.THREADS * 16 - (Mp - R) * (NT // 16 + 4)
+            * 4)
+
+
+def test_spill_and_global_where_the_shape_says():
+    """Above the band the spill variant takes config #4's f32 P2 LP;
+    shapes not in fours keep the global variant; a 16-CTA cluster that
+    holds the tableau keeps all its rows."""
+    assert gs.plan(*gs.padded_shape(1011, 2006)) == ("spill", 16)
+    assert gs.spill_rows(6, 128) is None and gs.spill_rows(8, 130) is None
+    assert gs.spill_rows(512, 1024) == 512
+    assert gs.plan(512, 1024) == ("cluster", 16)
+
+
+def test_forced_spill_runs_plain_version_on_cpu_and_counts_no_launch():
+    args = make(16, 16, 8, seed=6)
+    ref = gs.lp_batch_group(*args, device="cpu")
+    captured = {}
+    real = gs.solve_batch_group
+
+    def capture(*a, **kw):
+        captured["a"] = a
+        return real(*a, **kw)
+
+    gs.solve_batch_group = capture
+    try:
+        gs.lp_batch_group(*args, device="cpu")
+    finally:
+        gs.solve_batch_group = real
+    calls = (gs.CALLS, gs.CALLS_CLUSTER, gs.CALLS_SPILL, gs.CALLS_GLOBAL)
+    out = gs.solve_batch_group(*captured["a"], variant="spill", smem_rows=8)
+    plain = gs.solve_batch_group_reference(*captured["a"], group=1)
+    for a, b in zip(out, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (gs.CALLS, gs.CALLS_CLUSTER, gs.CALLS_SPILL,
+            gs.CALLS_GLOBAL) == calls
+    np.testing.assert_array_equal(out[0].numpy()[:8], ref.status)
+    with pytest.raises(ValueError, match="smem_rows"):
+        gs.solve_batch_group(*captured["a"], variant="global", smem_rows=8)
