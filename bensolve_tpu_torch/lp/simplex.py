@@ -35,6 +35,8 @@ import types
 import numpy as np
 import torch
 
+from bensolve_tpu_torch.lp import segments
+
 # status codes
 RUNNING = 0
 OPTIMAL = 1
@@ -641,15 +643,38 @@ STATE_WARM_MAX_AGE = 128
 
 
 def _run_segmented(step_fn, A, c, lb, ub, st: _State, max_iter: int):
+    """The pivot loop of ``step_fn`` (_step or dual_simplex._dstep) from
+    ``st``.  The state's tensors are made contiguous first, so the
+    graphs and the eager loop step the same layout (a warm tableau from
+    the LU solve is column-major).
+
+    Where lp/segments.py has a graph backend for the device (CUDA), every
+    segment is a replayed CUDA graph of the step, bit for bit the eager
+    loop's pivots.  The eager loop runs instead on the CPU (the plain
+    version), and on a mesh's shard threads (_SHARD_THREAD): their
+    solves run side by side, each on a stream of its own, and the
+    cache's buffers serve one solve at a time."""
+    st = dataclasses.replace(st, **{
+        f: getattr(st, f).contiguous() for f in segments.FIELDS})
+    if (st.W.device.type in segments.BACKENDS
+            and not getattr(_SHARD_THREAD, "on", False)
+            and not segments.eager_only()):
+        return segments.run(step_fn, c, lb, ub, st, max_iter)
+    return _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter)
+
+
+def _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter: int):
     """Host loop around the pivot step.  State stays on the device; the
     status vector comes back once per segment, and a segment is only
     the number of pivots between two such reads.  Steps taken after an
     LP finished leave its state unchanged."""
     step, seg = 0, 1
     while step < max_iter and bool((st.status == RUNNING).any()):
-        for _ in range(min(seg, max_iter - step)):
+        n = min(seg, max_iter - step)
+        for _ in range(n):
             st = step_fn(A, c, lb, ub, st)
-        step += min(seg, max_iter - step)
+        segments.count_eager(n)
+        step += n
         seg = min(2 * seg, SEGMENT_MAX)
     return st
 
@@ -995,8 +1020,9 @@ def _solve_tableau_tp(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
     from bensolve_tpu_torch.parallel import mesh as pmesh
 
     ts = _tp_initial_state(lay, devs, A_panels, c, lb, ub, basis0, at_upper0)
-    ts = _run_segmented(lambda *a: _tp_step(a[-1]), None, None, None, None,
-                        ts, max_iter)
+    # eager: a panelled step crosses the row's devices (see _run_segmented)
+    ts = _run_segmented_eager(lambda *a: _tp_step(a[-1]), None, None, None,
+                              None, ts, max_iter)
     out = _tp_finish(ts)
     pmesh.record_split("tableau", ts.panels, ts.steps)
     return out

@@ -175,7 +175,25 @@ Phases, one output line (or block) each:
    and basis equal); the kernel's launch counts unchanged over the
    phase (the path runs the torch tableau loop); per n the mesh's shape
    and wall on a {"graft": ...} line before the kernels line;
-19. the result lines.
+19. the pivot segments as CUDA graphs (lp/segments.py) against the eager
+   loop, each pair run in turns (eager, graph, graph, eager) on the same
+   inputs, float64: 256 P2 LPs of example10 (padded 384x768) to their
+   end; config #4's 8 P2 LPs (padded 1024x3072) cut at SEG_STEPS
+   pivots; the largest warm dual chain of phase 5's example10 solve,
+   re-run from its KeptState; the ex07 fallback's chunk, 64 cold P2 LPs
+   of random_vlp(3, 1211, 1143, seed=7) (padded 1280x2560) cut at
+   SEG_STEPS; config #5's largest round of phase 13 through the 3-D
+   path.  Per run: ms per pivot step (a synchronised host clock around
+   every pivot loop, over the counted steps), captures and their
+   seconds; every run's final loop states (every field, W, basis,
+   at_upper, status and iters among them) equal bit for bit to the
+   first eager run's;
+20. the result lines.
+
+After phases 5, 6, 13, 17's example10 run and 18 a [segments] line
+prints the counters of lp/segments.py over that phase (captures and
+their seconds, replays, steps by graph and eager); phases 5, 6 and 13
+fail unless they replayed graphs.
 
 The second-to-last line is one JSON object with the kernel's three
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -195,11 +213,14 @@ script, it exits non-zero and prints no result.
 
 ``--only 10 12`` runs just the named phases after phase 1 and prints no
 result lines (for iterating on one phase); ``--only 15`` first makes the
-unsharded runs of phase 13 that the mesh phase holds its own to.
+unsharded runs of phase 13 that the mesh phase holds its own to, and
+``--only 19`` the example10 solve and the config #5 run it takes its
+dual chain and its 3-D round from.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -318,6 +339,17 @@ LARGE_EX09 = (3, 4608, 36939, 8)
 # package's records, MULTICHIP_r0*.json, ran n = 8)
 GRAFT_NS = (1, 2, 4, 8)
 GRAFT_OBJ_RTOL = 1e-5
+# phase 19: pivots at which config #4's P2 LPs and the ex07 fallback's
+# chunk are cut (to the end, config #4's took 33,407 steps, 113 s eagerly
+# on an H100); the ex07 chunk: random_vlp(q, m, n, seed) and its LPs
+SEG_STEPS = 2000
+SEG_EX07 = dict(q=3, m=1211, n=1143, seed=7)
+SEG_EX07_B = 64
+SEG_EX10_B = 256
+# the phases after which the segment counters are printed, and those
+# that must have replayed graphs
+SEGMENT_PHASES = ("5", "6", "13", "17", "18")
+SEGMENT_REPLAY_GATE = ("5", "6", "13")
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1019,11 +1051,38 @@ def phase_large_f32():
     return clock.report("large f32", wall, variant="spill")
 
 
+class _DualChains:
+    """Keeps the arguments of the largest warm dual chain (a
+    dual_simplex._solve_dual_segmented call started from a KeptState)
+    of the solves it wraps, for phase 19."""
+
+    def __enter__(self):
+        from bensolve_tpu_torch.lp import dual_simplex
+
+        self.mod, self.real = dual_simplex, dual_simplex._solve_dual_segmented
+        self.largest = None
+
+        def recorded(*a, **kw):
+            B = a[1].shape[0]
+            if kw.get("state_warm") is not None and (
+                    self.largest is None or B > self.largest[0][1].shape[0]):
+                self.largest = (a, kw)
+            return self.real(*a, **kw)
+
+        dual_simplex._solve_dual_segmented = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._solve_dual_segmented = self.real
+
+
 def phase_main_f64():
     """The default float64 path on example10; returns its result."""
-    r, wall = _solve("example10", _options())
+    with _DualChains() as chains:
+        r, wall = _solve("example10", _options())
     _report("main f64", "example10", r, wall, 1e-4)
     _RESULTS["main f64"] = (r, wall)
+    _RESULTS["dual chain"] = chains.largest
     return r
 
 
@@ -1612,6 +1671,7 @@ def phase_many():
     lps = sum(r.stats.lps for r in rs)
     rounds = max(r.stats.rounds for r in rs)
     _RESULTS["many"] = (vlps, rs, wall)
+    _RESULTS["many largest"] = clock.largest
     sec = clock.seconds
     stack = sec["merged"] - sec["device"] - sec["readback"]
     setup = wall - sum(sec[k] for k in ("merged", "gather", "apply",
@@ -1886,27 +1946,22 @@ def _mesh_tp_config4(gate):
     from bensolve_tpu_torch.parallel import mesh as pmesh
     from bensolve_tpu_torch.parallel.mesh import make_mesh
 
+    from bensolve_tpu_torch.lp import segments
+
     t2, extra_ub = make_p2_instances(MESH_TP_B, **IPM_CONFIG,
                                      dtype=np.float64, device="cuda")
     args = (t2.A_lp,) + tuple(t2.build_inputs(extra_ub))
     M, N = t2.A_lp.shape
-    steps = [0]
-    real = simplex._step
-
-    def counted(*a):
-        steps[0] += 1
-        return real(*a)
-
-    simplex._step = counted
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r0 = simplex.solve_batch(*args, dtype=np.float64, device="cuda",
-                                 max_iter=MESH_TP_STEPS)
-        torch.cuda.synchronize()
-        wall0 = time.perf_counter() - t0
-    finally:
-        simplex._step = real
+    before = segments.counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r0 = simplex.solve_batch(*args, dtype=np.float64, device="cuda",
+                             max_iter=MESH_TP_STEPS)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    # the unsharded loop replays graphs (lp/segments.py)
+    steps = (segments.GRAPH_STEPS + segments.EAGER_STEPS
+             - before["graph_steps"] - before["eager_steps"])
     mesh = make_mesh(MESH_N, ("tp",), device="cuda")
     pmesh.LAST_SPLIT.clear()
     torch.cuda.synchronize()
@@ -1931,7 +1986,7 @@ def _mesh_tp_config4(gate):
     log(f"[mesh] config #4 P2 LPs (random_vlp({IPM_CONFIG}), LP {M}x{N}) "
         f"B={MESH_TP_B} float64, tableau simplex cut at {MESH_TP_STEPS} "
         f"steps: unsharded {wall0:.2f} s, "
-        f"{steps[0]} steps, {1e3 * wall0 / steps[0]:.3f} ms per step; over "
+        f"{steps} steps, {1e3 * wall0 / steps:.3f} ms per step; over "
         f"('tp',) x{MESH_N} {wall:.2f} s, {split['steps']} steps, "
         f"{1e3 * wall / split['steps']:.3f} ms per step; panels of "
         f"{sizes} MiB each; statuses {r.status.tolist()} equal; objectives "
@@ -2175,6 +2230,7 @@ def phase_large():
     if not (len(r.primal_points) > 500 and len(r.primal_directions) == 3):
         raise AssertionError("runner ex10: test_e2e_large's counts")
     gap = check_support(r, tol=1e-4, n_samples=16)
+    _segment_line("17 (runner ex10)")
     log(f"[large] runner ex10 ({row['card']}): {row['status']} in "
         f"{row['wall_s']:.2f} s, {row['lps']} LPs, {row['rounds']} rounds, "
         f"{row['points']} points, {row['directions']} directions, "
@@ -2281,6 +2337,185 @@ def phase_graft():
         before=before, after=after), dryrun=runs, gates=gate.passed)
 
 
+def _segment_line(tag, gate=False):
+    """The segment counters since the phase began; with ``gate``, fail
+    unless the phase replayed graphs."""
+    from bensolve_tpu_torch.lp import segments
+
+    c = segments.counts()
+    log(f"[segments] phase {tag}: {c['captures']} captures in "
+        f"{c['capture_s']:.2f} s, {c['replays']} replays, "
+        f"{c['graph_steps']} steps by graph, {c['eager_steps']} eager; "
+        f"{segments.cached_sets()} graph sets cached, "
+        f"{segments.cached_bytes() / 2**20:.1f} MiB of static buffers")
+    if gate and c["replays"] == 0:
+        raise AssertionError(f"phase {tag}: the pivot loops replayed no "
+                             f"graph")
+
+
+class _LoopClock:
+    """A synchronised host clock around every simplex._run_segmented call
+    (the pivot loop, by graph or eager), and the loops' final states."""
+
+    def __enter__(self):
+        from bensolve_tpu_torch.lp import simplex
+
+        self.mod, self.real = simplex, simplex._run_segmented
+        self.seconds, self.states = 0.0, []
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = self.real(*a)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.states.append(st)
+            return st
+
+        simplex._run_segmented = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run_segmented = self.real
+
+
+def _bits(t):
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def _segment_pair(gate, name, solve):
+    """solve() with the eager loop and with graphs in turns (eager, graph,
+    graph, eager): ms per pivot step of each, the captures and their
+    seconds; every run's final loop states bit for bit the first eager
+    run's.  Returns the runs."""
+    from bensolve_tpu_torch.lp import segments
+
+    runs, ref = [], None
+    for mode in ("eager", "graph", "graph", "eager"):
+        segments.reset_counts()
+        eager = mode == "eager"
+        with (segments.eager_loop() if eager else contextlib.nullcontext()), \
+                _LoopClock() as clock:
+            solve()
+        c = segments.counts()
+        steps = c["eager_steps"] if eager else c["graph_steps"]
+        gate(steps > 0 and (c["graph_steps"] == 0 if eager
+                            else c["eager_steps"] == 0 and c["replays"] > 0),
+             f"{name}: a {mode} run took the other loop ({c})")
+        if ref is None:
+            ref = clock.states
+        else:
+            gate(len(clock.states) == len(ref),
+                 f"{name}: {len(clock.states)} loops against {len(ref)}")
+            for i, (a, b) in enumerate(zip(ref, clock.states)):
+                for f in segments.FIELDS:
+                    x, y = getattr(a, f), getattr(b, f)
+                    gate(x.shape == y.shape and torch.equal(_bits(x),
+                                                            _bits(y)),
+                         f"{name}: loop {i}'s {f} differs, {mode} run "
+                         f"{len(runs)} against the first eager run")
+        runs.append(dict(mode=mode, seconds=clock.seconds, steps=steps,
+                         loops=len(clock.states),
+                         ms_per_step=1e3 * clock.seconds / steps,
+                         captures=c["captures"], capture_s=c["capture_s"],
+                         replays=c["replays"]))
+    eager_ms = [r["ms_per_step"] for r in runs if r["mode"] == "eager"]
+    replay_ms = runs[2]["ms_per_step"]
+    log(f"[segments] {name}: ms per pivot step eager {eager_ms[0]:.4f}, "
+        f"graph {runs[1]['ms_per_step']:.4f} (with {runs[1]['captures']} "
+        f"captures in {runs[1]['capture_s']:.2f} s), graph {replay_ms:.4f} "
+        f"({runs[2]['captures']} captures, {runs[2]['replays']} replays), "
+        f"eager {eager_ms[1]:.4f}; {runs[0]['steps']} steps in "
+        f"{runs[0]['loops']} loops; replayed graph / eager "
+        f"{replay_ms / np.mean(eager_ms):.3f}; final states bit for bit "
+        f"equal in every run ({len(segments.FIELDS)} fields)")
+    return runs
+
+
+def _ex10_p2(B, seed=0):
+    """B P2 LPs of example10: its P2 template, the row bounds of random
+    frontier vertices (float64)."""
+    from bensolve_tpu_torch import examples
+    from bensolve_tpu_torch.algs.templates import INHOMOGENEOUS, P2Template
+
+    vlp = examples.example10()
+    q = vlp.q
+    Z = np.eye(q) / (np.eye(q).T @ np.full(q, 1.0 / q))[None, :]
+    t2 = P2Template(vlp, vlp.P.astype(float), Z, np.full(q, 1.0 / q),
+                    INHOMOGENEOUS, device="cuda")
+    V = np.random.default_rng(seed).random((B, q)) * 2.0 + 1.0
+    return (t2.A_lp,) + tuple(t2.build_inputs(V @ t2.ZR))
+
+
+def _many_largest():
+    """Phase 13's largest merged round, or, run alone, config #5's."""
+    if "many largest" not in _RESULTS:
+        from bensolve_tpu_torch import examples
+        from bensolve_tpu_torch.algs import many
+        from bensolve_tpu_torch.vlp.options import Options
+
+        vlps = [examples.random_vlp(**MANY_VLP, seed=s)
+                for s in range(MANY_N)]
+        with _ManyClock() as clock:
+            many.solve_many(vlps, Options(bounded=True, write_files=False,
+                                          device="cuda"))
+        _RESULTS["many largest"] = clock.largest
+    return _RESULTS["many largest"]
+
+
+def phase_segments():
+    """The pivot segments as CUDA graphs against the eager loop, in
+    turns, at the shapes of the main path (see the module's docstring)."""
+    from bensolve_tpu_torch.lp import dual_simplex, simplex
+
+    gate = _Gates("segments")
+    f64 = dict(dtype=np.float64, device="cuda")
+    out = {}
+    args = _ex10_p2(SEG_EX10_B)
+    M, N = args[0].shape
+    out["example10 P2"] = _segment_pair(
+        gate, f"example10 P2 LPs ({M}x{N}, padded "
+        f"{simplex._bucket(M)}x{simplex._bucket(M) + simplex._bucket(N)}) "
+        f"B={SEG_EX10_B} to the end", lambda: simplex.solve_batch(*args,
+                                                                  **f64))
+    t2, extra_ub = make_p2_instances(MESH_TP_B, **IPM_CONFIG,
+                                     dtype=np.float64, device="cuda")
+    args = (t2.A_lp,) + tuple(t2.build_inputs(extra_ub))
+    out["config #4"] = _segment_pair(
+        gate, f"config #4 P2 LPs B={MESH_TP_B} cut at {SEG_STEPS}",
+        lambda: simplex.solve_batch(*args, max_iter=SEG_STEPS, **f64))
+    if _RESULTS.get("dual chain") is None:
+        phase_main_f64()
+    gate(_RESULTS["dual chain"] is not None,
+         "example10's solve ran no warm dual chain")
+    a, kw = _RESULTS["dual chain"]
+    out["dual chain"] = _segment_pair(
+        gate, f"example10's largest warm dual chain (B={a[1].shape[0]}, "
+        f"padded NT={a[1].shape[1]}, from a KeptState of age "
+        f"{kw['state_warm'][0].age})",
+        lambda: dual_simplex._solve_dual_segmented(*a, **kw))
+    t7, extra_ub = make_p2_instances(SEG_EX07_B, **SEG_EX07,
+                                     dtype=np.float64, device="cuda")
+    args7 = (t7.A_lp,) + tuple(t7.build_inputs(extra_ub))
+    M, N = t7.A_lp.shape
+    out["ex07 chunk"] = _segment_pair(
+        gate, f"ex07 fallback chunk: {SEG_EX07_B} cold P2 LPs of "
+        f"random_vlp({SEG_EX07}) ({M}x{N}) cut at {SEG_STEPS}",
+        lambda: simplex.solve_batch(*args7, max_iter=SEG_STEPS, **f64))
+    del t7, args7
+    a, kw = _many_largest()
+    out["config #5 round"] = _segment_pair(
+        gate, f"config #5's largest round ({a[1].shape[0]} LPs "
+        f"{a[0].shape[1]}x{a[0].shape[2]}, 3-D)",
+        lambda: simplex.solve_batch(*a, **kw))
+    log(f"[segments] {gate.passed} gates passed; {smi_line()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2316,6 +2551,7 @@ def main() -> int:
     bench_line = _timed("16", phase_bench)
     _timed("17", phase_large)
     graft = _timed("18", phase_graft)
+    _timed("19", phase_segments)
     _log_total(t_start)
     log(smi_line())
     log(json.dumps({"graft": graft}))
@@ -2388,15 +2624,20 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": _phase_4,
           "11": phase_ipm_e2e,
           "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
           "15": phase_mesh, "16": phase_bench, "17": phase_large,
-          "18": phase_graft}
+          "18": phase_graft, "19": phase_segments}
 # seconds per phase, and the mesh phase's passed gates, for [total]
 _PHASE_S = {}
 
 
 def _timed(key, fn, *args):
+    from bensolve_tpu_torch.lp import segments
+
+    segments.reset_counts()
     t0 = time.perf_counter()
     out = fn(*args)
     _PHASE_S[key] = time.perf_counter() - t0
+    if key in SEGMENT_PHASES:
+        _segment_line(key, gate=key in SEGMENT_REPLAY_GATE)
     if key == "15":
         _PHASE_S["mesh gates"] = out
     return out

@@ -11,7 +11,9 @@ the CPU; a "dp" mesh of streams on the card (and over the cards, where
 there are several) gives the one-device result; the bench's device
 stage launches the kernel; the driver entry (graft_entry) gives on the
 card what it gives on the CPU, and its dry run over ("dp", "tp") gives
-the unsharded result.
+the unsharded result; the pivot loops replayed as CUDA graphs
+(lp/segments.py) pivot bit for bit as the eager loop, primal, dual and
+3-D.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -489,3 +491,78 @@ def test_graft_entry_on_card_matches_cpu(cuda_device):
         for k, i in (("status", 0), ("iters", 6), ("basis", 7)):
             np.testing.assert_array_equal(step[k], one[i], err_msg=k)
     assert _counts() == before
+
+
+def _loop_states(run, monkeypatch):
+    """run()'s result and the final states of its pivot loops
+    (simplex._run_segmented)."""
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    states, real = [], sx._run_segmented
+
+    def kept(*a):
+        st = real(*a)
+        states.append(st)
+        return st
+
+    with monkeypatch.context() as m:
+        m.setattr(sx, "_run_segmented", kept)
+        out = run()
+    return out, states
+
+
+def _bits(t):
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["primal", "dual", "3-D"])
+def test_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, path,
+                                                 monkeypatch):
+    """The pivot loop by replayed CUDA graphs (lp/segments.py) against the
+    eager loop on the same inputs at float64: every field of every
+    loop's final state bit for bit, and the results equal; the graph run
+    replays graphs and runs no eager step."""
+    from bensolve_tpu_torch.lp import dual_simplex as dx
+    from bensolve_tpu_torch.lp import segments
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    f64 = dict(dtype=np.float64, device=cuda_device)
+    if path == "3-D":
+        args = batch_3d(1)
+        run = lambda: sx.solve_batch(*args, **f64)  # noqa: E731
+    else:
+        A, c, rlb, rub, clb, cub = make(60, 80, 16, 2)
+        run = lambda: sx.solve_batch(A, c, rlb, rub, clb, cub,  # noqa: E731
+                                     **f64)
+        if path == "dual":
+            cold = run()
+            assert (cold.status == OPTIMAL).all()
+            _, kept = dx.solve_batch_dual(
+                A, c, rlb, rub * 0.99, clb, cub, keep_state=True,
+                start_basis=(cold.basis, cold.at_upper), **f64)
+            assert kept is not None
+            idx = np.arange(16)[::-1].copy()
+            run = lambda: dx.solve_batch_dual(  # noqa: E731
+                A, c[idx], rlb[idx], rub[idx] * 0.97, clb[idx], cub[idx],
+                start_state=(kept, idx), **f64)
+    segments.reset_counts()
+    with segments.eager_loop():
+        ref, eager = _loop_states(run, monkeypatch)
+    assert segments.REPLAYS == 0 and segments.EAGER_STEPS > 0
+    steps = segments.EAGER_STEPS
+    segments.reset_counts()
+    got, graph = _loop_states(run, monkeypatch)
+    assert segments.REPLAYS > 0 and segments.EAGER_STEPS == 0
+    assert segments.GRAPH_STEPS == steps
+    assert len(eager) == len(graph) > 0
+    for a, b in zip(eager, graph):
+        for f in segments.FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), f
+    for f in ("status", "iters", "basis", "at_upper", "obj", "x"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)

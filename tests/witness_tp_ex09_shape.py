@@ -55,9 +55,12 @@ def _sync(device):
 def solve(args, device, mesh, route="revised", max_iter=None):
     """One solve of the batch through ``route`` ("revised" or "tableau");
     (result, wall, steps, peak bytes, split)."""
-    from bensolve_tpu_torch.lp import revised, simplex
+    from bensolve_tpu_torch.lp import revised, segments, simplex
     from bensolve_tpu_torch.parallel import mesh as pmesh
 
+    # the revised step is counted by a wrapper; the tableau loop's steps
+    # by lp/segments.py's counters (a wrapped step would be captured into
+    # a CUDA graph once and replayed uncounted)
     module, name, fn = ((revised, "_rstep", revised.solve_batch_revised)
                         if route == "revised"
                         else (simplex, "_step", simplex.solve_batch))
@@ -68,7 +71,9 @@ def solve(args, device, mesh, route="revised", max_iter=None):
         steps[0] += 1
         return real(*a)
 
-    setattr(module, name, counted)
+    if route == "revised":
+        setattr(module, name, counted)
+    tableau0 = segments.GRAPH_STEPS + segments.EAGER_STEPS
     pmesh.LAST_SPLIT.clear()
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -81,6 +86,8 @@ def solve(args, device, mesh, route="revised", max_iter=None):
         wall = time.perf_counter() - t0
     finally:
         setattr(module, name, real)
+    if route != "revised":
+        steps[0] = segments.GRAPH_STEPS + segments.EAGER_STEPS - tableau0
     split = pmesh.LAST_SPLIT.get(route)
     if split is not None:
         steps[0] = split["steps"]
