@@ -19,6 +19,12 @@ rule after a stall, carried pricing, the refactorization schedule, the
 two-stage anti-degeneracy perturbation, the final LU) mirror the JAX
 package step for step, so both take the same pivots on the same inputs.
 Reference contract: bslv_lp.c:219-303.
+
+On a CUDA device the pivot loop between two host reads is one or a few
+replayed CUDA graphs of ``_rstep`` (lp/segments.py), the counterpart of
+the JAX package's device-side segment program ``_revised_run_jit``; the
+refactorizations run eagerly between two replays, where ``_run``'s
+schedule reads the device.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import types
 import numpy as np
 import torch
 
+from bensolve_tpu_torch.lp import segments
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, INFEASIBLE, ITLIM,
                                            OPTIMAL, RUNNING, SEGMENT_MAX,
@@ -61,6 +68,26 @@ class _RState:
     force: torch.Tensor      # (B,) bool: the carried row is stale, price
     #   exactly next step
     resets: torch.Tensor     # (B,) int32 singular-basis slack resets
+
+
+RSTATE_FIELDS = tuple(f.name for f in dataclasses.fields(_RState))
+
+
+@dataclasses.dataclass
+class _RLoop(_RState):
+    """The loop state in a graph set (lp/segments.py): _RState plus the
+    counters that _run's eager loop keeps beside it, on the device."""
+
+    step: torch.Tensor       # () int64 global step count
+    last: torch.Tensor       # () int64 last step on which some LP ran
+    ran: torch.Tensor        # () bool: some LP ran in the latest step
+
+
+def _contiguous(st: _RState) -> _RState:
+    """``st`` with contiguous fields, so the graphs and the eager loop
+    step the same layout (an LU solve's B^-1 is column-major)."""
+    return dataclasses.replace(st, **{f: getattr(st, f).contiguous()
+                                      for f in RSTATE_FIELDS})
 
 
 def _e_col(AT, q, M):
@@ -111,11 +138,12 @@ def _initial_rstate(A, c, lb, ub, basis0=None, at_upper0=None, Brows0=None):
                    zeros.clone())
 
 
-def _rstep(A, AT, c, lb, ub, st: _RState, step: int):
+def _rstep(A, AT, c, lb, ub, st: _RState, step: torch.Tensor):
     """One revised pivot for every running LP of the batch (the torch
     form of the JAX package's ``_rstep``); ``step`` is the global step
-    count before this pivot.  Returns the new state and a device bool:
-    whether any LP was running when the step began.
+    count before this pivot, a () int64 tensor on the state's device.
+    Returns the new state and a device bool: whether any LP was running
+    when the step began.
 
     The exact pricing pass is computed every step and selected with
     ``torch.where``: the JAX package skips it with a device-side branch,
@@ -133,9 +161,8 @@ def _rstep(A, AT, c, lb, ub, st: _RState, step: int):
     # infeasible (composite phase-1 costs are not rank-1-maintainable),
     # when a carried row is stale (force), and every 64 steps
     full = torch.where(feasible[:, None], c, zero) - sx._e_rmatmul(A, y)
-    run_full = ((running & ~feasible) | (running & st.force)).any()
-    if step % 64 == 0:
-        run_full = torch.ones_like(run_full)
+    run_full = (((running & ~feasible) | (running & st.force)).any()
+                | (step % 64 == 0))
     d = torch.where(run_full, full, st.dred)
 
     # non-finite guard: an overflowed instance is never classified; it
@@ -208,6 +235,16 @@ def _rstep(A, AT, c, lb, ub, st: _RState, step: int):
                   pv.stall, pv.iters, gamma_new, dred_new, force_new,
                   st.resets)
     return new, running.any()
+
+
+def _rseg_step(A, AT, c, lb, ub, s: _RLoop) -> _RLoop:
+    """_rstep with _run's counters, the step a graph captures: the step
+    count advanced in place, and ``last`` moved to it where some LP
+    ran."""
+    new, ran = _rstep(A, AT, c, lb, ub, s, s.step)
+    step = s.step.add_(1)
+    return _RLoop(**vars(new), step=step,
+                  last=torch.where(ran, step, s.last), ran=ran)
 
 
 # pivots between basis-inverse refactorizations: the product-form rank-1
@@ -314,37 +351,131 @@ def _perturbed_bounds(lb: np.ndarray, ub: np.ndarray, dtype):
     return lb1.astype(dtype), ub1.astype(dtype)
 
 
-def _run(stepper, refactor, st, step: int, cap: int, every: int):
+def _reads(step: int, end: int, every: int) -> list[int]:
+    """The steps in (step, end] after which _schedule reads the device:
+    every multiple of 16 and of ``every``, and ``end``."""
+    return [t for t in range(step + 1, end + 1)
+            if t % 16 == 0 or t % every == 0 or t == end]
+
+
+def _schedule(loop, step: int, cap: int, every: int) -> int:
     """Pivot until no LP is running or ``step`` reaches ``cap``, with the
     JAX package's refactorization schedule: after step t (counted after
     the pivot), refactorize when t % every == 0, or when t % 16 == 0 and
     some running LP has non-finite xb.  The device state is read on the
-    host once every 16 steps (the schedule) and at the end of each
-    segment (1, 2, 4, ... up to SEGMENT_MAX steps).  Steps taken after
-    the last LP finished change nothing the result reads; they are not
-    counted and never refactorize.  ``stepper(st, step)`` takes one
-    pivot and returns (state, device bool: any LP was running);
-    ``refactor(st)`` refactorizes.  Returns (state, step)."""
-    alive = bool((st.status == RUNNING).any())
+    host once every 16 steps (the schedule), at every multiple of
+    ``every``, and at the end of each segment (1, 2, 4, ... up to
+    SEGMENT_MAX steps).  Steps taken after the last LP finished change
+    nothing the result reads; they are not counted and never
+    refactorize.  ``loop`` (_Eager or _Graphs) takes the steps between
+    two reads and holds the state (``st``), the latest step's any-LP-ran
+    flag (``ran``) and the last step on which some LP ran (``last``).
+    Returns the step count."""
+    alive = bool((loop.st.status == RUNNING).any())
     seg = 1
     while alive and step < cap:
-        last = torch.tensor(step, device=st.status.device)
-        for _ in range(min(seg, cap - step)):
-            st, ran = stepper(st, step)
-            step += 1
-            last = torch.where(ran, step, last)
-            periodic = step % every == 0
-            if periodic or step % 16 == 0:
+        loop.begin()
+        for t in _reads(step, step + min(seg, cap - step), every):
+            loop.advance(t - step)
+            step = t
+            periodic = t % every == 0
+            if periodic or t % 16 == 0:
+                st = loop.st
                 bad = ((st.status == RUNNING)
                        & ~torch.isfinite(st.xb).all(dim=1)).any()
-                ran_h, bad_h = torch.stack([ran, bad]).tolist()
-                if ran_h and (periodic or (bad_h and step % 16 == 0)):
-                    st = refactor(st)
+                ran_h, bad_h = torch.stack([loop.ran, bad]).tolist()
+                if ran_h and (periodic or (bad_h and t % 16 == 0)):
+                    loop.refactor()
         step, alive = torch.stack(
-            [last, (st.status == RUNNING).any().to(last.dtype)]).tolist()
+            [loop.last,
+             (loop.st.status == RUNNING).any().to(loop.last.dtype)]).tolist()
         alive = bool(alive)
         seg = min(2 * seg, SEGMENT_MAX)
-    return st, step
+    return step
+
+
+class _Eager:
+    """_schedule's steps taken one by one from the host: the plain
+    version on the CPU, and the loop of a dp shard thread or of a row's
+    "tp" panels.  ``stepper(st, step)`` takes one pivot (``step`` the
+    step count before it, a () int64 tensor on the state's device) and
+    returns (state, device bool: any LP was running); ``refactor(st)``
+    refactorizes."""
+
+    def __init__(self, stepper, refactor, st, step: int):
+        self.stepper, self.refactor_fn, self.st = stepper, refactor, st
+        self.step = torch.tensor(step, device=st.status.device)
+        self.last = self.ran = None
+
+    def begin(self):
+        self.last = self.step
+
+    def advance(self, n: int):
+        for _ in range(n):
+            self.st, self.ran = self.stepper(self.st, self.step)
+            self.step = self.step + 1
+            self.last = torch.where(self.ran, self.step, self.last)
+        segments.count_eager(n, "revised")
+
+    def refactor(self):
+        self.st = self.refactor_fn(self.st)
+
+
+class _Graphs:
+    """_schedule's steps as replays of a held graph set of _rseg_step
+    (lp/segments.py), whose buffers hold the state and the counters;
+    a refactorization runs eagerly on the buffers, and its result is
+    copied back into them."""
+
+    def __init__(self, gs, refactor):
+        self.gs, self.refactor_fn, self.st = gs, refactor, gs.state
+
+    @property
+    def ran(self):
+        return self.st.ran
+
+    @property
+    def last(self):
+        return self.st.last
+
+    def begin(self):
+        self.st.last.copy_(self.st.step)
+
+    def advance(self, n: int):
+        self.gs.advance(n)
+
+    def refactor(self):
+        self.gs.put(self.refactor_fn(self.st))
+
+
+def _run_eager(stepper, refactor, st, step: int, cap: int, every: int):
+    """_schedule's loop taken by _Eager; returns (state, step)."""
+    loop = _Eager(stepper, refactor, st, step)
+    step = _schedule(loop, step, cap, every)
+    return loop.st, step
+
+
+def _run(A, AT, c, lb, ub, st: _RState, step: int, cap: int, every: int):
+    """The revised pivot loop from ``st`` (see _schedule): by replayed
+    CUDA graphs of _rstep where simplex._graphs_on says so, eagerly
+    otherwise; both take the same pivots, bit for bit.  The state is
+    made contiguous on entry and after every refactorization, in both.
+    Returns (state, step)."""
+    st = _contiguous(st)
+    dev = c.device
+    if not sx._graphs_on(dev):
+        return _run_eager(lambda s, k: _rstep(A, AT, c, lb, ub, s, k),
+                          lambda s: _contiguous(_refactor(A, c, lb, ub, s)),
+                          st, step, cap, every)
+    start = _RLoop(**vars(st), step=torch.tensor(step, device=dev),
+                   last=torch.tensor(step, device=dev),
+                   ran=torch.zeros((), dtype=torch.bool, device=dev))
+    with segments.held(_rseg_step, "revised", start, (A, AT, c, lb, ub),
+                       ("Binv", "Brows")) as gs:
+        step = _schedule(_Graphs(gs, lambda s: _refactor(A, c, lb, ub, s)),
+                         step, cap, every)
+        out = gs.unload(start)
+    return _RState(**{f: getattr(out, f) for f in RSTATE_FIELDS}), step
 
 
 def _finish(A, c, lb, ub, st: _RState):
@@ -369,17 +500,12 @@ def _solve_revised_segmented(A, AT, c, lb, ub, basis0, at_upper0, Brows0,
     lb_run, ub_run = pert if pert is not None else (lb, ub)
     st = _initial_rstate(A, c, lb_run, ub_run, basis0, at_upper0, Brows0)
     every = _refactor_interval(A.shape[0], c.shape[1], c.dtype)
-
-    def run(lb_s, ub_s, st, step, cap):
-        return _run(lambda s, k: _rstep(A, AT, c, lb_s, ub_s, s, k),
-                    lambda s: _refactor(A, c, lb_s, ub_s, s),
-                    st, step, cap, every)
-
-    st, step = run(lb_run, ub_run, st, 0, max_iter)
+    st, step = _run(A, AT, c, lb_run, ub_run, st, 0, max_iter, every)
     if pert is not None:
         st = _rebound(A, c, lb, ub, st)
         # cleanup budget: warm re-verification is short
-        st, step = run(lb, ub, st, step, step + max(2 * A.shape[0], 2000))
+        st, step = _run(A, AT, c, lb, ub, st, step,
+                        step + max(2 * A.shape[0], 2000), every)
     return _finish(A, c, lb, ub, st)
 
 
@@ -456,9 +582,10 @@ def _tp_initial_rstate(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
     return ts
 
 
-def _tp_rstep(ts, step: int):
-    """One revised pivot of _rstep over the row's panels (see above).
-    Returns (state, device bool: any LP was running)."""
+def _tp_rstep(ts, step: torch.Tensor):
+    """One revised pivot of _rstep over the row's panels (see above);
+    ``step`` as _rstep's, on the lead.  Returns (state, device bool: any
+    LP was running)."""
     from bensolve_tpu_torch.parallel import mesh as pmesh
 
     lay, ld, devs = ts.lay, ts.lead, ts.devs
@@ -467,9 +594,8 @@ def _tp_rstep(ts, step: int):
     running = ld.status == RUNNING
     viol_lo, viol_up, feasible, cB_eff = sx._phase_costs(ld)
     use_bland = ld.stall > BLAND_AFTER
-    run_full = ((running & ~feasible) | (running & ld.force)).any()
-    if step % 64 == 0:
-        run_full = torch.ones_like(run_full)
+    run_full = (((running & ~feasible) | (running & ld.force)).any()
+                | (step % 64 == 0))
 
     # y = cB^T B^-1: each panel its own columns, then all-gathered
     sent = list(zip(*(pmesh.to_all(x, devs) for x in
@@ -625,11 +751,11 @@ def _solve_revised_tp(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
     ts = _tp_initial_rstate(lay, devs, A_panels, c, lb_run, ub_run, basis0,
                             at_upper0, Brows0)
     every = _refactor_interval(lay.Mp, c.shape[1], c.dtype)
-    ts, step = _run(_tp_rstep, _tp_refactor, ts, 0, max_iter, every)
+    ts, step = _run_eager(_tp_rstep, _tp_refactor, ts, 0, max_iter, every)
     if pert is not None:
         ts = _tp_rebound(ts, lb, ub)
-        ts, step = _run(_tp_rstep, _tp_refactor, ts, step,
-                        step + max(2 * lay.Mp, 2000), every)
+        ts, step = _run_eager(_tp_rstep, _tp_refactor, ts, step,
+                              step + max(2 * lay.Mp, 2000), every)
     rows = pmesh.all_gather([p.Brows for p in ts.panels], devs[:1])[0]
     out = sx._tp_finish(ts, rows[:, :, :lay.Mp])
     pmesh.record_split("revised", ts.panels, ts.steps)

@@ -1,33 +1,40 @@
-"""Segments of the pivot loop as CUDA graphs: the torch counterpart of
+"""Segments of the pivot loops as CUDA graphs: the torch counterpart of
 the JAX package's device-side segment programs,
-``bensolve_tpu/lp/simplex.py::_tableau_run_jit`` and
-``lp/dual_simplex.py::_dual_run_jit`` (each a ``lax.while_loop`` over a
+``bensolve_tpu/lp/simplex.py::_tableau_run_jit``,
+``lp/dual_simplex.py::_dual_run_jit`` and
+``lp/revised.py::_revised_run_jit`` (each a ``lax.while_loop`` over a
 pivot step that runs on the device between two host reads).
 
 Run eagerly, every op of a pivot is a kernel launched from Python, about
-60 a step.  Here k steps of ``simplex._step`` or ``dual_simplex._dstep``
-are captured once into a ``torch.cuda.CUDAGraph`` and replayed with one
-launch.  ``simplex._run_segmented`` keeps its schedule (segments of 1,
-2, 4, ... SEGMENT_MAX steps, one host read of the status between two),
-so the reads fall on the same steps as in the eager loop; a segment cut
-short by ``max_iter`` replays the binary decomposition of its length
-(37 = 32 + 4 + 1).
+60 a step.  Here k steps of a step function are captured once into a
+``torch.cuda.CUDAGraph`` and replayed with one launch.  The loops keep
+their schedules, so the host reads fall on the same steps as in the
+eager loop: ``simplex._run_segmented`` reads the status between
+segments of 1, 2, 4, ... SEGMENT_MAX steps (``run`` below), and
+``revised._run`` also every 16 steps and at every multiple of its
+refactorization interval, where it decides on the host whether to
+refactorize and runs the refactorization eagerly between two replays on
+the set's buffers (through ``held``).  A piece of n steps between two reads replays the binary
+decomposition of n (37 = 32 + 4 + 1).
 
-The cache holds one *graph set* per (step function, device, dtype, B,
-M, NT): static buffers for every field of the loop state and for the
-inputs c, lb, ub (neither step reads A, so the graphs are given None for
-it), one memory pool, a side stream, and one graph per (k, TF32
-setting), captured at its first use.  Graph(k) runs k steps on the
-static buffers and ends by copying each new field back into them (W the
-steps update in place), so the state always lives in the buffers.  A
-solve copies its start state in, replays, and copies the final state
-out: the tableau back into the start state's own W, the tensor that the
-eager loop updates in place, and every other field into a new tensor.
-So nothing a solve returns, a KeptState's W included, aliases the cache,
-and no tableau is allocated for it.  The sets hold at most
-``simplex.TABLEAU_BYTES_BUDGET`` bytes of static buffers (one set alone
-may hold more): the least recently used set is evicted first and its
-graphs are reset.
+The cache holds one *graph set* per key: the step function, the device,
+and the shape and dtype of every field of the loop state and of every
+static input (c, lb, ub for the tableau steps, which are given None for
+A since neither reads it; A, A^T, c, lb, ub for the revised step).  A
+set holds static buffers for all of these, one memory pool, a side
+stream, and one graph per (k, TF32 setting), captured at its first use.
+Graph(k) runs k steps on the static buffers and ends by copying each
+new field back into them (the fields the step updates in place, W or
+B^-1 and the basis rows, are already there), so the state always lives
+in the buffers.  A use copies its start state and inputs in, replays,
+and copies the final state out: the fields updated in place back into
+the start state's own tensors, the tensors that the eager loop updates
+in place, and every other field into a new tensor.  So nothing a solve
+returns, a KeptState's W included, aliases the cache, and a new A of a
+cached shape is copied in before any replay reads it.  The sets hold at
+most ``simplex.TABLEAU_BYTES_BUDGET`` bytes of static buffers (one set
+alone may hold more): the least recently used set is evicted first and
+its graphs are reset.
 
 A replay launches the kernels that the eager steps launch, on the same
 inputs, so it pivots bit for bit as the eager loop.  The key holds
@@ -43,20 +50,24 @@ cache (``_LOCK``, held from copy-in to copy-out), and each use waits on
 the card for the previous use's copy-out.
 
 A capture that fails raises.  Nothing switches the graphs off: where
-``BACKENDS`` has no entry for the device (the CPU) the loop runs
-eagerly, as the plain version, and a mesh's shard threads run it eagerly
-too (``simplex._run_segmented`` says why).  ``eager_loop()`` exists only
-to hold the graphs to the eager loop, in the tests and chip_smoke.py.
+``BACKENDS`` has no entry for the device (the CPU) the loops run
+eagerly, as the plain version, and a mesh's shard threads and "tp"
+panels run them eagerly too (``simplex._graphs_on`` says why).
+``eager_loop()`` exists only to hold the graphs to the eager loops, in
+the tests and chip_smoke.py.
 
 Counters, plain integers read by chip_smoke.py: CAPTURES, REPLAYS,
-GRAPH_STEPS (steps run by replays), EAGER_STEPS (steps the eager loop
-ran, on any device), CAPTURE_S (seconds spent warming up and capturing).
+GRAPH_STEPS (steps run by replays), EAGER_STEPS (steps the eager loops
+ran, on any device), CAPTURE_S (seconds spent warming up and capturing),
+each over every loop, and the same split by loop in ``BY_LOOP``
+("tableau", "dual", "revised").
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import threading
 import time
 
@@ -67,12 +78,15 @@ REPLAYS = 0
 GRAPH_STEPS = 0
 EAGER_STEPS = 0
 CAPTURE_S = 0.0
+LOOPS = ("tableau", "dual", "revised")
+BY_LOOP = {name: dict(captures=0, replays=0, graph_steps=0, eager_steps=0,
+                      capture_s=0.0) for name in LOOPS}
 
 # steps run on scratch copies of the state before a set's first capture
 # under a TF32 setting (see above)
 WARMUP_STEPS = 2
 
-# the loop state's fields (simplex._State), each a tensor
+# the tableau loops' state fields (simplex._State), each a tensor
 FIELDS = ("basis", "in_basis", "at_upper", "W", "xb", "lbB", "ubB", "cB",
           "status", "stall", "iters", "gamma")
 
@@ -84,19 +98,32 @@ _EAGER = threading.local()
 
 def counts() -> dict:
     return dict(captures=CAPTURES, replays=REPLAYS, graph_steps=GRAPH_STEPS,
-                eager_steps=EAGER_STEPS, capture_s=CAPTURE_S)
+                eager_steps=EAGER_STEPS, capture_s=CAPTURE_S,
+                by_loop={k: dict(v) for k, v in BY_LOOP.items()})
 
 
 def reset_counts() -> None:
     global CAPTURES, REPLAYS, GRAPH_STEPS, EAGER_STEPS, CAPTURE_S
     CAPTURES = REPLAYS = GRAPH_STEPS = EAGER_STEPS = 0
     CAPTURE_S = 0.0
+    for v in BY_LOOP.values():
+        v.update(captures=0, replays=0, graph_steps=0, eager_steps=0,
+                 capture_s=0.0)
 
 
-def count_eager(n: int) -> None:
+def loop_of(step_fn) -> str:
+    """The counters' name of a tableau loop's step function: "dual" for
+    dual_simplex._dstep, "tableau" for any other."""
+    from bensolve_tpu_torch.lp import dual_simplex
+
+    return "dual" if step_fn is dual_simplex._dstep else "tableau"
+
+
+def count_eager(n: int, loop: str) -> None:
     global EAGER_STEPS
     with _COUNT_LOCK:
         EAGER_STEPS += n
+        BY_LOOP[loop]["eager_steps"] += n
 
 
 @contextlib.contextmanager
@@ -198,19 +225,32 @@ def _parts(n: int) -> list[int]:
 
 
 def _nbytes(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _fields(st) -> tuple:
+    """The loop state's fields: every field of its dataclass."""
+    return tuple(f.name for f in dataclasses.fields(st))
+
+
+def _contiguous_like(x):
+    return None if x is None else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
 
 
 class _GraphSet:
-    """The static buffers, pool, side stream and graphs of one key."""
+    """The static buffers, pool, side stream and graphs of one key.
+    ``inputs``: the step's leading arguments (None stays None);
+    ``inplace``: the fields the step updates in place."""
 
-    def __init__(self, backend, step_fn, st, c, lb, ub):
-        self.backend, self.step_fn, self.dev = backend, step_fn, c.device
-        self.state = type(st)(**{f: torch.empty_like(
-            getattr(st, f), memory_format=torch.contiguous_format)
-            for f in FIELDS})
-        self.c, self.lb, self.ub = (torch.empty_like(
-            x, memory_format=torch.contiguous_format) for x in (c, lb, ub))
+    def __init__(self, backend, step_fn, loop, st, inputs, inplace):
+        self.backend, self.step_fn, self.loop = backend, step_fn, loop
+        self.dev = st.status.device
+        self.fields, self.inplace = _fields(st), inplace
+        self.state = type(st)(**{f: _contiguous_like(getattr(st, f))
+                                 for f in self.fields})
+        self.inputs = tuple(_contiguous_like(x) for x in inputs)
         self.nbytes = _nbytes(self._buffers())
         self.pool = backend.new_pool()
         self.stream = backend.new_stream(self.dev)
@@ -219,43 +259,48 @@ class _GraphSet:
         self.fence = None     # the last use's copy-out, on the card
 
     def _buffers(self):
-        return [getattr(self.state, f) for f in FIELDS] + [
-            self.c, self.lb, self.ub]
+        return [getattr(self.state, f) for f in self.fields] + [
+            x for x in self.inputs if x is not None]
 
-    def load(self, st, c, lb, ub):
+    def load(self, st, inputs):
         if self.fence is not None:
             self.backend.wait(self.fence, self.dev)
-        for f in FIELDS:
-            getattr(self.state, f).copy_(getattr(st, f))
-        for buf, x in ((self.c, c), (self.lb, lb), (self.ub, ub)):
-            buf.copy_(x)
+        self.put(st)
+        for buf, x in zip(self.inputs, inputs):
+            if buf is not None:
+                buf.copy_(x)
+
+    def put(self, st):
+        """Copy the fields of ``st`` that are not the buffers already
+        into them (a start state; a state the caller made from them)."""
+        for f in self.fields:
+            new, buf = getattr(st, f), getattr(self.state, f)
+            if new is not buf:
+                buf.copy_(new)
 
     def unload(self, st):
-        """The final state: W copied into the start state's W, every
-        other field into a new tensor."""
-        out = type(st)(**{f: (st.W.copy_(self.state.W) if f == "W"
+        """The final state: the fields updated in place copied into the
+        start state's own tensors, every other field into a new one."""
+        out = type(st)(**{f: (getattr(st, f).copy_(getattr(self.state, f))
+                              if f in self.inplace
                               else getattr(self.state, f).clone())
-                          for f in FIELDS})
+                          for f in self.fields})
         self.fence = self.backend.fence(self.dev)
         return out
 
     def _steps(self, st, k):
         for _ in range(k):
-            st = self.step_fn(None, self.c, self.lb, self.ub, st)
+            st = self.step_fn(*self.inputs, st)
         return st
 
     def _segment(self, k):
         def run():
-            st = self._steps(self.state, k)
-            for f in FIELDS:
-                new, buf = getattr(st, f), getattr(self.state, f)
-                if new is not buf:
-                    buf.copy_(new)
+            self.put(self._steps(self.state, k))
         return run
 
     def _warm_up(self):
         scratch = type(self.state)(**{f: getattr(self.state, f).clone()
-                                      for f in FIELDS})
+                                      for f in self.fields})
         self._steps(scratch, WARMUP_STEPS)
 
     def graph(self, k):
@@ -270,8 +315,11 @@ class _GraphSet:
             graph = self.backend.capture(self._segment(k), self.pool,
                                          self.stream)
             self.graphs[(k, tf32)] = graph
+            dt = time.perf_counter() - t0
             CAPTURES += 1
-            CAPTURE_S += time.perf_counter() - t0
+            CAPTURE_S += dt
+            BY_LOOP[self.loop]["captures"] += 1
+            BY_LOOP[self.loop]["capture_s"] += dt
         return graph
 
     def advance(self, n):
@@ -281,6 +329,8 @@ class _GraphSet:
             self.graph(k).replay()
             REPLAYS += 1
             GRAPH_STEPS += k
+            BY_LOOP[self.loop]["replays"] += 1
+            BY_LOOP[self.loop]["graph_steps"] += k
 
     def release(self):
         """Reset the graphs and drop the buffers, once the last use's
@@ -290,26 +340,45 @@ class _GraphSet:
         for graph in self.graphs.values():
             graph.reset()
         self.graphs.clear()
-        self.state = self.c = self.lb = self.ub = None
+        self.state = self.inputs = None
 
 
-def _set_for(step_fn, st, c, lb, ub):
+def _key(step_fn, st, inputs):
+    return (step_fn, st.status.device) + tuple(
+        None if x is None else (tuple(x.shape), x.dtype)
+        for x in [getattr(st, f) for f in _fields(st)] + list(inputs))
+
+
+def _set_for(step_fn, loop, st, inputs, inplace):
     """The key's graph set, made (after evicting least recently used
     sets down to the budget) if the cache lacks it.  Holds _LOCK."""
     from bensolve_tpu_torch.lp import simplex as sx
 
-    W = st.W
-    key = (step_fn, W.device, W.dtype) + tuple(W.shape)
+    key = _key(step_fn, st, inputs)
     gs = _SETS.get(key)
     if gs is not None:
         _SETS.move_to_end(key)
         return gs
-    need = _nbytes([getattr(st, f) for f in FIELDS] + [c, lb, ub])
+    need = _nbytes([getattr(st, f) for f in _fields(st)] + list(inputs))
     while _SETS and cached_bytes() + need > sx.TABLEAU_BYTES_BUDGET:
         _SETS.popitem(last=False)[1].release()
-    gs = _SETS[key] = _GraphSet(BACKENDS[W.device.type], step_fn, st, c,
-                                lb, ub)
+    gs = _SETS[key] = _GraphSet(BACKENDS[st.status.device.type], step_fn,
+                                loop, st, inputs, inplace)
     return gs
+
+
+@contextlib.contextmanager
+def held(step_fn, loop, st, inputs, inplace):
+    """The graph set of ``step_fn(*inputs, state)`` for ``st``, loaded
+    with ``st`` and ``inputs`` (tensors, or None for an argument the step
+    does not read) and held by this thread until the block ends, for a
+    loop whose schedule the caller runs: ``advance``, read and ``put``
+    between replays, then ``unload(st)``.  ``loop`` names the counters;
+    ``inplace`` the fields the step updates in place."""
+    with _LOCK:
+        gs = _set_for(step_fn, loop, st, inputs, inplace)
+        gs.load(st, inputs)
+        yield gs
 
 
 def run(step_fn, c, lb, ub, st, max_iter: int):
@@ -318,9 +387,8 @@ def run(step_fn, c, lb, ub, st, max_iter: int):
     simplex._State of contiguous tensors on a device with a backend."""
     from bensolve_tpu_torch.lp import simplex as sx
 
-    with _LOCK:
-        gs = _set_for(step_fn, st, c, lb, ub)
-        gs.load(st, c, lb, ub)
+    with held(step_fn, loop_of(step_fn), st, (None, c, lb, ub),
+              ("W",)) as gs:
         step, seg = 0, 1
         while step < max_iter and bool((gs.state.status
                                         == sx.RUNNING).any()):

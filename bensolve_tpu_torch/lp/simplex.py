@@ -650,17 +650,25 @@ def _run_segmented(step_fn, A, c, lb, ub, st: _State, max_iter: int):
 
     Where lp/segments.py has a graph backend for the device (CUDA), every
     segment is a replayed CUDA graph of the step, bit for bit the eager
-    loop's pivots.  The eager loop runs instead on the CPU (the plain
-    version), and on a mesh's shard threads (_SHARD_THREAD): their
-    solves run side by side, each on a stream of its own, and the
-    cache's buffers serve one solve at a time."""
+    loop's pivots.  The eager loop runs instead where _graphs_on says
+    so: on the CPU (the plain version) and on a mesh's shard threads."""
     st = dataclasses.replace(st, **{
         f: getattr(st, f).contiguous() for f in segments.FIELDS})
-    if (st.W.device.type in segments.BACKENDS
-            and not getattr(_SHARD_THREAD, "on", False)
-            and not segments.eager_only()):
+    if _graphs_on(st.W.device):
         return segments.run(step_fn, c, lb, ub, st, max_iter)
     return _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter)
+
+
+def _graphs_on(dev) -> bool:
+    """Whether this thread's pivot loops on ``dev`` replay graphs
+    (lp/segments.py): where the device type has a graph backend, off a
+    mesh's shard threads (their solves run side by side, each on a
+    stream of its own, and the cache's buffers serve one solve at a
+    time) and outside segments.eager_loop().  A "tp" panel's step
+    crosses its row's devices, so those loops are always eager."""
+    return (dev.type in segments.BACKENDS
+            and not getattr(_SHARD_THREAD, "on", False)
+            and not segments.eager_only())
 
 
 def _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter: int):
@@ -673,7 +681,7 @@ def _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter: int):
         n = min(seg, max_iter - step)
         for _ in range(n):
             st = step_fn(A, c, lb, ub, st)
-        segments.count_eager(n)
+        segments.count_eager(n, segments.loop_of(step_fn))
         step += n
         seg = min(2 * seg, SEGMENT_MAX)
     return st

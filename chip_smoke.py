@@ -56,7 +56,9 @@ Phases, one output line (or block) each:
    through the revised simplex at float64 with both algorithms: the revised route taken, the tableau
    and the kernel untouched, the oracle at 1e-4, and the two upper
    images equal within 1e-6 (support functions at 4096 weights; their
-   vertex lists may differ along nearly straight stretches);
+   vertex lists may differ along nearly straight stretches); its pivot
+   loops replay CUDA graphs of the revised step (lp/segments.py), and
+   the inputs of its largest batched solve are kept for phase 19;
 9. the revised simplex on the card against the CPU on two random
    batches (float64 to 1e-9, float32 to 1e-3);
 10. the interior-point method at BASELINE config #4's full width
@@ -183,17 +185,23 @@ Phases, one output line (or block) each:
    re-run from its KeptState; the ex07 fallback's chunk, 64 cold P2 LPs
    of random_vlp(3, 1211, 1143, seed=7) (padded 1280x2560) cut at
    SEG_STEPS; config #5's largest round of phase 13 through the 3-D
-   path.  Per run: ms per pivot step (a synchronised host clock around
-   every pivot loop, over the counted steps), captures and their
-   seconds; every run's final loop states (every field, W, basis,
-   at_upper, status and iters among them) equal bit for bit to the
-   first eager run's;
+   path; then the revised loop (revised._run): phase 8's largest
+   batched solve to its end, and B = 2 P2 LPs of ex09's shape
+   (random_vlp(3, 4608, 36939, seed=7), LP 4615x36943, padded
+   5120x40960, exact bounds) through revised._run alone, cut at
+   SEG_EX09_STEPS pivots, each beside its byte bound per step.  Per
+   run: ms per pivot step (a synchronised host clock around every pivot
+   loop, over the counted steps), captures and their seconds; every
+   run's final loop states (every field, W or B^-1, basis, at_upper,
+   status and iters among them, and the revised loop's returned step)
+   equal bit for bit to the first eager run's;
 20. the result lines.
 
-After phases 5, 6, 13, 17's example10 run and 18 a [segments] line
+After phases 5, 6, 8, 13, 17's example10 run and 18 a [segments] line
 prints the counters of lp/segments.py over that phase (captures and
-their seconds, replays, steps by graph and eager); phases 5, 6 and 13
-fail unless they replayed graphs.
+their seconds, replays, steps by graph and eager, in all and per loop:
+tableau, dual, revised); phases 5, 6, 8 and 13 fail unless they
+replayed graphs, phase 8 graphs of the revised loop.
 
 The second-to-last line is one JSON object with the kernel's three
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -214,13 +222,15 @@ script, it exits non-zero and prints no result.
 ``--only 10 12`` runs just the named phases after phase 1 and prints no
 result lines (for iterating on one phase); ``--only 15`` first makes the
 unsharded runs of phase 13 that the mesh phase holds its own to, and
-``--only 19`` the example10 solve and the config #5 run it takes its
-dual chain and its 3-D round from.
+``--only 19`` the example10 solve, the config #5 run and phase 8's tall
+solves it takes its dual chain, its 3-D round and its revised batch
+from.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import json
 import os
@@ -346,10 +356,16 @@ SEG_STEPS = 2000
 SEG_EX07 = dict(q=3, m=1211, n=1143, seed=7)
 SEG_EX07_B = 64
 SEG_EX10_B = 256
+# phase 19's revised pair at ex09's shape: random_vlp(q, m, n, seed)'s
+# P2 LPs, SEG_EX09_B of them, cut at SEG_EX09_STEPS pivots
+SEG_EX09 = dict(q=3, m=4608, n=36939, seed=7)
+SEG_EX09_B = 2
+SEG_EX09_STEPS = 1000
 # the phases after which the segment counters are printed, and those
-# that must have replayed graphs
-SEGMENT_PHASES = ("5", "6", "13", "17", "18")
-SEGMENT_REPLAY_GATE = ("5", "6", "13")
+# that must have replayed graphs (phase 8: of the revised loop)
+SEGMENT_PHASES = ("5", "6", "8", "13", "17", "18")
+SEGMENT_REPLAY_GATE = ("5", "6", "8", "13")
+SEGMENT_LOOP_GATE = {"8": "revised"}
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1134,7 +1150,14 @@ def phase_tall():
     solve_s = []
 
     def timed(*a, **kw):
-        # the revised LP layer: one batched device solve, host clock
+        # the revised LP layer: one batched device solve, host clock;
+        # the largest batch's inputs (copies: a warm solve updates its
+        # basis rows in place) kept for phase 19
+        kept = _RESULTS.get("tall largest")
+        if kept is None or a[2].shape[0] > kept[0][2].shape[0]:
+            _RESULTS["tall largest"] = (tuple(
+                x.clone() if isinstance(x, torch.Tensor) else x
+                for x in a), dict(kw))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = real_rv(*a, **kw)
@@ -2343,40 +2366,56 @@ def _segment_line(tag, gate=False):
     from bensolve_tpu_torch.lp import segments
 
     c = segments.counts()
+    per = "; ".join(
+        f"{k} {v['replays']} replays, {v['graph_steps']} by graph, "
+        f"{v['eager_steps']} eager" for k, v in c["by_loop"].items()
+        if v["replays"] or v["eager_steps"])
     log(f"[segments] phase {tag}: {c['captures']} captures in "
         f"{c['capture_s']:.2f} s, {c['replays']} replays, "
-        f"{c['graph_steps']} steps by graph, {c['eager_steps']} eager; "
+        f"{c['graph_steps']} steps by graph, {c['eager_steps']} eager "
+        f"({per or 'no loop ran'}); "
         f"{segments.cached_sets()} graph sets cached, "
         f"{segments.cached_bytes() / 2**20:.1f} MiB of static buffers")
     if gate and c["replays"] == 0:
         raise AssertionError(f"phase {tag}: the pivot loops replayed no "
                              f"graph")
+    loop = SEGMENT_LOOP_GATE.get(tag)
+    if gate and loop and c["by_loop"][loop]["replays"] == 0:
+        raise AssertionError(f"phase {tag}: the {loop} loop replayed no "
+                             f"graph")
 
 
 class _LoopClock:
-    """A synchronised host clock around every simplex._run_segmented call
-    (the pivot loop, by graph or eager), and the loops' final states."""
+    """A synchronised host clock around every call of a pivot loop, by
+    graph or eager: simplex._run_segmented (``revised`` False) or
+    revised._run; and what the loops returned (a final state, or the
+    revised loop's (state, step))."""
+
+    def __init__(self, revised=False):
+        self.revised = revised
 
     def __enter__(self):
-        from bensolve_tpu_torch.lp import simplex
+        from bensolve_tpu_torch.lp import revised, simplex
 
-        self.mod, self.real = simplex, simplex._run_segmented
+        self.mod, self.name = ((revised, "_run") if self.revised
+                               else (simplex, "_run_segmented"))
+        self.real = getattr(self.mod, self.name)
         self.seconds, self.states = 0.0, []
 
         def timed(*a):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st = self.real(*a)
+            out = self.real(*a)
             torch.cuda.synchronize()
             self.seconds += time.perf_counter() - t0
-            self.states.append(st)
-            return st
+            self.states.append(out)
+            return out
 
-        simplex._run_segmented = timed
+        setattr(self.mod, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        self.mod._run_segmented = self.real
+        setattr(self.mod, self.name, self.real)
 
 
 def _bits(t):
@@ -2387,19 +2426,22 @@ def _bits(t):
     return t
 
 
-def _segment_pair(gate, name, solve):
+def _segment_pair(gate, name, solve, revised=False):
     """solve() with the eager loop and with graphs in turns (eager, graph,
     graph, eager): ms per pivot step of each, the captures and their
     seconds; every run's final loop states bit for bit the first eager
-    run's.  Returns the runs."""
+    run's (``revised``: the revised loops', and their returned steps).
+    Returns the runs."""
     from bensolve_tpu_torch.lp import segments
+    from bensolve_tpu_torch.lp.revised import RSTATE_FIELDS
 
+    fields = RSTATE_FIELDS if revised else segments.FIELDS
     runs, ref = [], None
     for mode in ("eager", "graph", "graph", "eager"):
         segments.reset_counts()
         eager = mode == "eager"
         with (segments.eager_loop() if eager else contextlib.nullcontext()), \
-                _LoopClock() as clock:
+                _LoopClock(revised) as clock:
             solve()
         c = segments.counts()
         steps = c["eager_steps"] if eager else c["graph_steps"]
@@ -2412,7 +2454,11 @@ def _segment_pair(gate, name, solve):
             gate(len(clock.states) == len(ref),
                  f"{name}: {len(clock.states)} loops against {len(ref)}")
             for i, (a, b) in enumerate(zip(ref, clock.states)):
-                for f in segments.FIELDS:
+                if revised:
+                    gate(a[1] == b[1], f"{name}: loop {i} returned step "
+                         f"{b[1]} against {a[1]}, {mode} run {len(runs)}")
+                    a, b = a[0], b[0]
+                for f in fields:
                     x, y = getattr(a, f), getattr(b, f)
                     gate(x.shape == y.shape and torch.equal(_bits(x),
                                                             _bits(y)),
@@ -2432,7 +2478,8 @@ def _segment_pair(gate, name, solve):
         f"eager {eager_ms[1]:.4f}; {runs[0]['steps']} steps in "
         f"{runs[0]['loops']} loops; replayed graph / eager "
         f"{replay_ms / np.mean(eager_ms):.3f}; final states bit for bit "
-        f"equal in every run ({len(segments.FIELDS)} fields)")
+        f"equal in every run ({len(fields)} fields"
+        f"{' and the returned step' if revised else ''})")
     return runs
 
 
@@ -2512,7 +2559,92 @@ def phase_segments():
         gate, f"config #5's largest round ({a[1].shape[0]} LPs "
         f"{a[0].shape[1]}x{a[0].shape[2]}, 3-D)",
         lambda: simplex.solve_batch(*a, **kw))
+    del a, kw
+    out.update(_revised_pairs(gate))
     log(f"[segments] {gate.passed} gates passed; {smi_line()}")
+    return out
+
+
+def _revised_bound_ms(M, N, B, itemsize):
+    """The bytes a revised pivot step must move, at HBM's rate, in ms:
+    four passes over B^-1 (y = cB B^-1, alpha = B^-1 E_q, and the
+    rank-1 update's read and write) and one read of A (the pivot row
+    b_r E for the devex weights and the carried costs), on the LP's
+    unpadded M x N; a step that reprices exactly reads A once more."""
+    return (4 * B * M * M + M * N) * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def _revised_pair_line(name, runs, M, N, B, itemsize):
+    bound = _revised_bound_ms(M, N, B, itemsize)
+    eager = np.mean([r["ms_per_step"] for r in runs if r["mode"] == "eager"])
+    replay = runs[2]["ms_per_step"]
+    log(f"[segments] {name}: revised ms per step eager {eager:.4f}, "
+        f"replayed {replay:.4f}, bound {bound:.4g} (bytes: 4 passes over "
+        f"B^-1 and one read of A at 3.35 TB/s); replayed / bound "
+        f"{replay / bound:.2f}, eager / bound {eager / bound:.2f}")
+    return dict(runs=runs, bound_ms=bound, M=M, N=N, B=B)
+
+
+def _revised_pairs(gate):
+    """Phase 19's revised pairs: phase 8's largest batched solve to its
+    end, and ex09's shape through revised._run alone, cut."""
+    from bensolve_tpu_torch.lp import revised, simplex
+
+    out = {}
+    if "tall largest" not in _RESULTS:
+        phase_tall()
+    a, kw = _RESULTS["tall largest"]
+
+    def tall():
+        revised._solve_revised_segmented(*(
+            x.clone() if isinstance(x, torch.Tensor) else x for x in a),
+            **kw)
+
+    M, N = a[0].shape
+    q, m, n = TALL
+    with simplex._tf32_off():
+        runs = _segment_pair(
+            gate, f"tall random_vlp(q={q}, m={m}, n={n})'s largest revised "
+            f"batch (B={a[2].shape[0]}, padded {M}x{a[2].shape[1]}) to the "
+            f"end", tall, revised=True)
+    lp = (m + 2 * q + 1, n + q + 1)
+    out["tall largest"] = _revised_pair_line(
+        "tall largest batch", runs, *lp, a[2].shape[0], 8)
+    del a, kw
+
+    t9, extra_ub = make_p2_instances(SEG_EX09_B, **SEG_EX09,
+                                     dtype=np.float64, device="cuda")
+    A9, c, rlb, rub, clb, cub = (t9.A_lp,) + tuple(
+        t9.build_inputs(extra_ub))
+    M9, N9 = A9.shape
+    sc = revised._prepare_scaled(A9, np.float64, torch.device("cuda"))
+    r, cv = sc.rscale, sc.cscale
+    prep = sc.prep
+    AT = prep.transposed()
+    Bp = simplex._bucket_batch(SEG_EX09_B, prep.Mp)
+    put = lambda x: simplex._put(x, "cuda")  # noqa: E731
+    c_t, lb_t, ub_t = (put(x) for x in simplex._pad_batch_inputs(
+        prep, c * cv[None, :], rlb * r[None, :], rub * r[None, :],
+        clb / cv[None, :], cub / cv[None, :], Bp, np.float64))
+    every = revised._refactor_interval(prep.Mp, c_t.shape[1], c_t.dtype)
+    with simplex._tf32_off():
+        st0 = revised._initial_rstate(prep.dev, c_t, lb_t, ub_t)
+
+        def ex09():
+            st = dataclasses.replace(st0, **{
+                f: getattr(st0, f).clone() for f in revised.RSTATE_FIELDS})
+            revised._run(prep.dev, AT, c_t, lb_t, ub_t, st, 0,
+                         SEG_EX09_STEPS, every)
+
+        runs = _segment_pair(
+            gate, f"ex09's shape: {Bp} P2 LPs of random_vlp({SEG_EX09}) "
+            f"({M9}x{N9}, padded {prep.Mp}x{c_t.shape[1]}), exact bounds, "
+            f"revised._run cut at {SEG_EX09_STEPS} (refactorization every "
+            f"{every})", ex09, revised=True)
+    out["ex09 shape"] = _revised_pair_line("ex09 shape", runs, M9, N9, Bp,
+                                           8)
+    del st0, prep, sc, AT, c_t, lb_t, ub_t, t9
+    revised._S_CACHE.clear()
     return out
 
 

@@ -12,8 +12,8 @@ there are several) gives the one-device result; the bench's device
 stage launches the kernel; the driver entry (graft_entry) gives on the
 card what it gives on the CPU, and its dry run over ("dp", "tp") gives
 the unsharded result; the pivot loops replayed as CUDA graphs
-(lp/segments.py) pivot bit for bit as the eager loop, primal, dual and
-3-D.
+(lp/segments.py) pivot bit for bit as the eager loop, primal, dual,
+3-D and revised (``-k revised_graphs``).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -265,7 +265,14 @@ def test_revised_on_card_matches_cpu(cuda_device, case):
 @pytest.mark.cuda
 def test_revised_f32_runs_without_tf32(cuda_device, monkeypatch):
     """Every pivot of a float32 revised solve sees allow_tf32 False, even
-    when the caller left it on; the caller's setting comes back after."""
+    when the caller left it on; the caller's setting comes back after.
+    On the card the pivots are replayed CUDA graphs (lp/segments.py):
+    the cache is emptied first, so every graph this solve replays is
+    captured in it, its steps seen by the spy, and each is keyed with
+    TF32 off."""
+    from bensolve_tpu_torch.lp import segments
+
+    segments.clear()
     seen = []
     real = rv._rstep
 
@@ -282,6 +289,9 @@ def test_revised_f32_runs_without_tf32(cuda_device, monkeypatch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert seen and not any(seen)
+    keys = [k for gs in segments._SETS.values() if gs.loop == "revised"
+            for k in gs.graphs]
+    assert keys and not any(tf32 for _, tf32 in keys)
 
 
 def ipm_batch(M, N, B, seed):
@@ -562,6 +572,55 @@ def test_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, path,
     assert len(eager) == len(graph) > 0
     for a, b in zip(eager, graph):
         for f in segments.FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), f
+    for f in ("status", "iters", "basis", "at_upper", "obj", "x"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [((1, 10, 50, 8), np.float64),
+                                  ((11, 48, 320, 4), np.float32)])
+def test_revised_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, case,
+                                                         monkeypatch):
+    """The revised pivot loop by replayed CUDA graphs of _rstep
+    (revised._run through lp/segments.py) against the eager loop on the
+    same inputs, on the tall recipe: every field of every loop's final
+    state bit for bit, the returned step counts and the results equal;
+    the graph run replays graphs of the revised loop and runs no eager
+    step."""
+    from bensolve_tpu_torch.lp import segments
+
+    shape, dtype = case
+    args = tall(*shape)
+    runs = {}
+    for mode in ("eager", "graph"):
+        loops, real = [], rv._run
+
+        def kept(*a):
+            out = real(*a)
+            loops.append(out)
+            return out
+
+        segments.reset_counts()
+        with monkeypatch.context() as m:
+            m.setattr(rv, "_run", kept)
+            if mode == "eager":
+                with segments.eager_loop():
+                    res = rv.solve_batch_revised(*args, dtype=dtype,
+                                                 device=cuda_device)
+            else:
+                res = rv.solve_batch_revised(*args, dtype=dtype,
+                                             device=cuda_device)
+        runs[mode] = (res, loops, segments.counts()["by_loop"]["revised"])
+    (ref, eager, ce), (got, graph, cg) = runs["eager"], runs["graph"]
+    assert ce["replays"] == 0 and ce["eager_steps"] > 0
+    assert cg["replays"] > 0 and cg["eager_steps"] == 0
+    assert cg["graph_steps"] == ce["eager_steps"]
+    assert len(eager) == len(graph) > 0
+    for (a, sa), (b, sb) in zip(eager, graph):
+        assert sa == sb
+        for f in rv.RSTATE_FIELDS:
             x, y = getattr(a, f), getattr(b, f)
             assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), f
     for f in ("status", "iters", "basis", "at_upper", "obj", "x"):

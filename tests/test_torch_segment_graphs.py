@@ -1,12 +1,6 @@
-"""The segment runner of lp/segments.py (the pivot loop as replayed CUDA
-graphs) on the CPU, through a stand-in for capture.
-
-There is no CUDA graph on the CPU, so ``StandIn`` takes the backend's
-place: a capture records the segment's step calls and runs nothing (as a
-capture runs nothing), and a replay runs them on the static buffers.
-With it the runner's bookkeeping runs here: the cache and its keys, the
-copy-in and copy-out, the schedule of segments and its binary tails,
-eviction.  Required:
+"""The segment runner of lp/segments.py (the tableau pivot loops as
+replayed CUDA graphs) on the CPU, through the stand-in for capture of
+tests/torch_graph_standin.py.  Required:
 
 * the final loop state equal to the eager loop's (simplex._run_segmented
   on the CPU) bit for bit, every field, on a P2 batch of example10
@@ -39,6 +33,7 @@ from bensolve_tpu_torch.lp import dual_simplex as tdx
 from bensolve_tpu_torch.lp import segments
 from bensolve_tpu_torch.lp import simplex as tsx
 from tests.test_ipm import random_lp
+from tests.torch_graph_standin import bits, standing_in
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,71 +49,6 @@ def _empty_cache():
     segments.clear()
     yield
     segments.clear()
-
-
-class _Recorded:
-    """A "captured" segment: the function whose step calls it replays."""
-
-    def __init__(self, owner, fn):
-        self.owner, self.fn = owner, fn
-
-    def replay(self):
-        self.fn()
-        self.owner.replays += 1
-
-    def reset(self):
-        self.fn = None
-        self.owner.resets += 1
-
-
-class StandIn:
-    """The CPU's stand-in for the CUDA backend of lp/segments.py."""
-
-    def __init__(self):
-        self.captures = self.replays = self.resets = 0
-
-    def new_pool(self):
-        return None
-
-    def new_stream(self, dev):
-        return None
-
-    def on_side(self, stream, fn):
-        fn()
-
-    def capture(self, fn, pool, stream):
-        self.captures += 1
-        return _Recorded(self, fn)
-
-    def fence(self, dev):
-        return None
-
-    def wait(self, fence, dev):
-        pass
-
-    def sync(self, fence):
-        pass
-
-
-@contextlib.contextmanager
-def standing_in():
-    """CPU loops through the segment runner, with a fresh stand-in."""
-    stand_in = StandIn()
-    segments.BACKENDS["cpu"] = stand_in
-    try:
-        yield stand_in
-    finally:
-        del segments.BACKENDS["cpu"]
-        segments.clear()
-
-
-def bits(t):
-    """A tensor's bit pattern, for equality that tells -0.0 and NaNs."""
-    if t.dtype == torch.float64:
-        return t.view(torch.int64)
-    if t.dtype == torch.float32:
-        return t.view(torch.int32)
-    return t
 
 
 def assert_same_state(a, b):
@@ -229,8 +159,9 @@ def test_tail_of_37_replays_32_4_1():
 
     per_replay = []
     with standing_in():
-        gs = segments._set_for(counted, st, c, lb, ub)
-        gs.load(st, c, lb, ub)
+        inputs = (None, c, lb, ub)
+        gs = segments._set_for(counted, "tableau", st, inputs, ("W",))
+        gs.load(st, inputs)
         for n in (1, 2, 4, 8, 16, 32, 37):
             for k in segments._parts(n):
                 graph = gs.graph(k)    # the first warms up: 2 steps

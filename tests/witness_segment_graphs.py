@@ -4,14 +4,19 @@ graphs (bensolve_tpu_torch/lp/segments.py), on the card.
     python tests/witness_segment_graphs.py [--many N] [--cases ...]
 
 Cases, each at float64: example10 with the primal and with the dual
-Benson algorithm, ex11 (example11) at its defaults, and BASELINE config
-#5 (N x random_vlp(q=3, m=10, n=8, seed=s), bounded, solve_many).  Each
+Benson algorithm, ex11 (example11) at its defaults, BASELINE config #5
+(N x random_vlp(q=3, m=10, n=8, seed=s), bounded, solve_many), and the
+tall VLP of chip_smoke.py's phase 8 (random_vlp(q=2, m=50, n=500), every
+LP through the revised simplex) with the primal and with the dual
+algorithm.  Each
 case runs in turns, eager, graph, graph, eager (the graph cache lives
 for the process, so the first graph run holds the captures), then once
 eagerly and once by graph under torch.profiler: the device busy share
 is the union of the trace's kernel intervals over the profiled wall.
 Per run: wall, pivot steps by graph and eager, captures and their
-seconds, replays.  Every run's vertex set equals the first eager run's
+seconds, replays (in all and per loop), and the revised LP layer's
+seconds (a synchronised host clock around every batched revised solve)
+and solves.  Every run's vertex set equals the first eager run's
 bit for bit (the graphs pivot as the eager loop does).  One JSON line
 per case, and the card's name and power limit.  Without a CUDA device it
 exits non-zero.
@@ -62,6 +67,10 @@ def _cases(many_n, device):
                                          Options(**dual, **f64))],
         "ex11": lambda: [solve(examples.example11(), Options(**f64))],
         f"config #5 ({many_n} instances)": many,
+        "tall primal": lambda: [solve(examples.random_vlp(q=2, m=50, n=500),
+                                      Options(**f64))],
+        "tall dual": lambda: [solve(examples.random_vlp(q=2, m=50, n=500),
+                                    Options(**dual, **f64))],
     }
 
 
@@ -85,11 +94,25 @@ def _busy(trace_path):
 
 
 def _run(fn, mode, profile=False):
+    from bensolve_tpu_torch.lp import revised
+
     segments.reset_counts()
     ctx = (segments.eager_loop() if mode == "eager"
            else contextlib.nullcontext())
     prof = None
+    real, layer = revised._solve_revised_segmented, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        layer.append(time.perf_counter() - t0)
+        return out
+
+    revised._solve_revised_segmented = timed
     with ctx, contextlib.ExitStack() as stack:
+        stack.callback(setattr, revised, "_solve_revised_segmented", real)
         if profile:
             prof = stack.enter_context(torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -99,7 +122,8 @@ def _run(fn, mode, profile=False):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rec = dict(mode=mode, wall_s=wall, **segments.counts())
+    rec = dict(mode=mode, wall_s=wall, **segments.counts(),
+               revised_s=sum(layer), revised_solves=len(layer))
     if prof is not None:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")

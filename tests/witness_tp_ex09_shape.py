@@ -58,42 +58,35 @@ def solve(args, device, mesh, route="revised", max_iter=None):
     from bensolve_tpu_torch.lp import revised, segments, simplex
     from bensolve_tpu_torch.parallel import mesh as pmesh
 
-    # the revised step is counted by a wrapper; the tableau loop's steps
-    # by lp/segments.py's counters (a wrapped step would be captured into
-    # a CUDA graph once and replayed uncounted)
-    module, name, fn = ((revised, "_rstep", revised.solve_batch_revised)
-                        if route == "revised"
-                        else (simplex, "_step", simplex.solve_batch))
-    steps = [0]
-    real = getattr(module, name)
+    # the steps by lp/segments.py's counters of the route's loops (a
+    # wrapped step would be captured into a CUDA graph once and replayed
+    # uncounted)
+    fn = (revised.solve_batch_revised if route == "revised"
+          else simplex.solve_batch)
+    loops = ("revised",) if route == "revised" else ("tableau", "dual")
 
-    def counted(*a):
-        steps[0] += 1
-        return real(*a)
+    def counted():
+        by = segments.counts()["by_loop"]
+        return sum(by[k]["graph_steps"] + by[k]["eager_steps"]
+                   for k in loops)
 
-    if route == "revised":
-        setattr(module, name, counted)
-    tableau0 = segments.GRAPH_STEPS + segments.EAGER_STEPS
+    steps0 = counted()
     pmesh.LAST_SPLIT.clear()
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    try:
-        _sync(device)
-        t0 = time.perf_counter()
-        res = fn(*args, dtype=np.float64, device=device, mesh=mesh,
-                 max_iter=max_iter)
-        _sync(device)
-        wall = time.perf_counter() - t0
-    finally:
-        setattr(module, name, real)
-    if route != "revised":
-        steps[0] = segments.GRAPH_STEPS + segments.EAGER_STEPS - tableau0
+    _sync(device)
+    t0 = time.perf_counter()
+    res = fn(*args, dtype=np.float64, device=device, mesh=mesh,
+             max_iter=max_iter)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    steps = counted() - steps0
     split = pmesh.LAST_SPLIT.get(route)
     if split is not None:
-        steps[0] = split["steps"]
+        steps = split["steps"]
     peak = (torch.cuda.max_memory_allocated()
             if torch.device(device).type == "cuda" else None)
-    return res, wall, steps[0], peak, split
+    return res, wall, steps, peak, split
 
 
 def main(argv=None) -> int:
