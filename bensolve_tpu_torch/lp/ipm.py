@@ -31,14 +31,23 @@ On the card:
 * float32 products run at full float32: TF32 is off for the duration of
   a solve, whatever the caller's setting (a TF32 normal matrix keeps 10
   mantissa bits and stalls the Newton steps);
+* an iteration is a replayed CUDA graph of ``_Core.step`` (lp/segments.py,
+  loop "ipm"; the counterpart of the JAX package's device-side segment
+  program ``_ipm_seg_jit``), captured per shape of the carry and the
+  chunk's inputs; the eager loop runs on the CPU (the plain version) and
+  under segments.eager_loop();
 * nothing is read back inside an iteration: the Cholesky retry is
-  computed for every instance and selected with torch.where, and the
-  host reads status, iterations and best score once per segment of
-  BENSOLVE_IPM_SEG iterations.  Inside a segment the host runs at most
-  ``_LAG`` iterations ahead of the device and reads a flag that says
-  whether any instance still runs, so a segment ends where the JAX
-  package's while_loop ends it; the few iterations queued past that
-  point change no output.
+  computed for every instance and selected with torch.where, the solves
+  are triangular solves on cuBLAS (torch.cholesky_solve of a batch runs
+  MAGMA, which no graph can hold), and the host reads status,
+  iterations and best score once per segment of BENSOLVE_IPM_SEG
+  iterations.  Inside a segment a flag that says whether any instance
+  still runs is copied to the host after every PIECE iterations and read
+  one piece later, so a segment ends one piece past where the JAX
+  package's while_loop ends it (``LAST["past_stop"]`` counts these
+  iterations); an iteration after every instance finished changes only
+  mu_prev and noimp (carry[8], carry[9]) of finished rows, which no
+  output reads.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import time as _time
 import numpy as np
 import torch
 
+from bensolve_tpu_torch.lp import segments
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.revised import _tf32_off
 from bensolve_tpu_torch.lp.simplex import (INFEASIBLE, ITLIM, OPTIMAL,
@@ -62,15 +72,19 @@ CALLS = 0
 # LPs handed to the exact host HiGHS fallback, and the seconds they took
 HOST_FALLBACK = 0
 HOST_FALLBACK_SECONDS = 0.0
+# iterations run past the JAX package's stop (masked: every instance had
+# finished), over every solve
+PAST_STOP = 0
 # what the last top-level solve did: batch, chunks, polished and
-# polish-skipped instances, LPs handed to the host fallback
+# polish-skipped instances, LPs handed to the host fallback, iterations
+# run past the JAX package's stop (its rescue pass's included)
 LAST: dict = {}
 
 # bytes of the (g, M, N) scaled-matrix temporary of one group of the
 # S build (the JAX package builds S one instance at a time, lax.map)
 S_BUILD_BYTES = 512 << 20
-# iterations the host may enqueue ahead of the device inside a segment
-_LAG = 2
+# iterations per replayed graph between two copies of the running flag
+PIECE = 1
 
 
 def _pow2(x):
@@ -226,26 +240,74 @@ def _ipm_warm_init(c, l, u, z0, y0, M):
     return _start_carry(z, y0, zl0, zu0, p0, w0, mu0)
 
 
+@dataclasses.dataclass
+class _Carry:
+    """The 16-entry carry as the loop state of a graph set
+    (lp/segments.py), entry for entry."""
+
+    z: torch.Tensor
+    y: torch.Tensor
+    zl: torch.Tensor
+    zu: torch.Tensor
+    p: torch.Tensor
+    w: torch.Tensor
+    status: torch.Tensor
+    it: torch.Tensor
+    mu_prev: torch.Tensor
+    noimp: torch.Tensor
+    zb: torch.Tensor
+    yb: torch.Tensor
+    zlb: torch.Tensor
+    zub: torch.Tensor
+    score_b: torch.Tensor
+    resets: torch.Tensor
+
+    def carry(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+
+@dataclasses.dataclass
+class _TraceCarry(_Carry):
+    """The carry with BENSOLVE_IPM_TRACE's history, its 17th entry."""
+
+    hist: torch.Tensor
+
+
+def _state_of(carry) -> _Carry:
+    return (_TraceCarry if len(carry) > 16 else _Carry)(*carry)
+
+
 class _Core:
     """One chunk's fixed data for the iteration: the scaled matrix with
-    its free-column split (M, N), c, l, u (B, N + M), the split pairs
-    and the dtype's parameters."""
+    its free-column split (M, N), c, l, u (B, N + M), the split pairs,
+    the tensors derived from c, l, u (DERIVED: computed here, or given,
+    as a graph set's buffers are) and the dtype's parameters."""
 
-    def __init__(self, A, c, l, u, split, dtype):
+    DERIVED = ("has_l", "has_u", "fixed", "hl", "hu", "nb", "cmax", "mid")
+
+    def __init__(self, A, c, l, u, split, derived=None):
         self.A, self.c, self.l, self.u, self.split = A, c, l, u, split
         (self.tol, self.reg_p, self.reg_d, self.damp,
-         self.div) = _params(dtype)
+         self.div) = _params(np.float64 if c.dtype == torch.float64
+                             else np.float32)
         self.M, self.N = A.shape
-        self.has_l, self.has_u, self.fixed = _box(l, u)
-        self.hl = self.has_l & ~self.fixed
-        self.hu = self.has_u & ~self.fixed
-        self.nb = (self.has_l.sum(dim=1) + self.has_u.sum(dim=1)
-                   ).clamp_min(1).to(c.dtype)
-        self.cmax = c.abs().amax(dim=1)
-        self.mid = _midpoint(l, u, self.has_l, self.has_u, self.fixed)
+        if derived is None:
+            has_l, has_u, fixed = _box(l, u)
+            derived = (has_l, has_u, fixed, has_l & ~fixed, has_u & ~fixed,
+                       (has_l.sum(dim=1) + has_u.sum(dim=1)
+                        ).clamp_min(1).to(c.dtype),
+                       c.abs().amax(dim=1),
+                       _midpoint(l, u, has_l, has_u, fixed))
+        for name, t in zip(self.DERIVED, derived):
+            setattr(self, name, t)
         self.floor = 1e-12 if c.dtype == torch.float64 else 1e-8
         self.group = max(1, S_BUILD_BYTES // max(
             1, self.M * self.N * c.element_size()))
+
+    def tensors(self) -> tuple:
+        """A, c, l, u, the split pairs, then DERIVED's tensors."""
+        return (self.A, self.c, self.l, self.u, self.split) + tuple(
+            getattr(self, name) for name in self.DERIVED)
 
     def Gz(self, z):
         return torch.matmul(z[:, :self.N], self.A.T) - z[:, self.N:]
@@ -290,11 +352,22 @@ class _Core:
     @staticmethod
     def solve(L, S, rhs):
         """Cholesky solve plus two passes of iterative refinement against
-        the unboosted S (they change the iterates; parity keeps them)."""
+        the unboosted S (they change the iterates; parity keeps them).
+        The solve is the JAX package's _chol_solve, two triangular
+        solves: on the card torch.cholesky_solve of a batch runs MAGMA's
+        potrs_batched, which cannot be captured in a CUDA graph
+        (tests/witness_ipm_linalg.py), and solve_triangular runs
+        cuBLAS."""
         r = rhs[..., None]
-        x = torch.cholesky_solve(r, L)
+        Lt = L.transpose(1, 2)
+
+        def chol_solve(b):
+            y = torch.linalg.solve_triangular(L, b, upper=False)
+            return torch.linalg.solve_triangular(Lt, y, upper=True)
+
+        x = chol_solve(r)
         for _ in range(2):
-            x = x + torch.cholesky_solve(r - torch.bmm(S, x), L)
+            x = x + chol_solve(r - torch.bmm(S, x))
         return x[..., 0]
 
     def direction(self, L, S, D, r_p, r_d, p, w, zl, zu, r_cl, r_cu):
@@ -466,44 +539,82 @@ class _Core:
         return out
 
 
-def _ipm_core(A, c, l, u, split, carry0, seg, max_iter, dtype):
+def _graph_step(A, c, l, u, split, *rest):
+    """One iteration on a graph set's buffers (lp/segments.py): ``rest``
+    is _Core.DERIVED's tensors, then the loop state (a _Carry)."""
+    *derived, st = rest
+    core = _Core(A, c, l, u, split, derived)
+    return _state_of(core.step(st.carry(), (st.status < 0).any()))
+
+
+def _advance(advance, running, n, piece, ahead, dev) -> int:
+    """At most n iterations, ``advance(k)`` running k of them, in pieces
+    of at most ``piece``.  After each piece the device flag ``running()``
+    (any instance still running) is copied to the host; the host runs at
+    most ``ahead`` pieces past the last flag it has read and stops at the
+    first that says none runs, where the JAX package's loop stops.  The
+    iterations queued past that point are masked (``_Core.step``).
+    Returns the iterations run."""
+    cuda = dev.type == "cuda"
+    flags = torch.empty(-(-n // piece), dtype=torch.bool, pin_memory=cuda)
+    pending = collections.deque()
+    done = 0
+    while done < n:
+        k = min(piece, n - done)
+        advance(k)
+        flags[done // piece].copy_(running(), non_blocking=cuda)
+        fence = None
+        if cuda:
+            fence = torch.cuda.Event()
+            fence.record()
+        pending.append((done // piece, fence))
+        done += k
+        while len(pending) > ahead:
+            j, fence = pending.popleft()
+            if fence is not None:
+                fence.synchronize()
+            if not bool(flags[j]):
+                return done
+    return done
+
+
+def _ipm_core(A, c, l, u, split, carry0, seg, max_iter):
     """Advance the IPM by at most ``seg`` iterations from ``carry0``, on
     the tensors' device, stopping where the JAX package's loop
     (``k < seg & any(status < 0) & all(it < max_iter)``) stops.  c, l,
-    u: (B, K) with K = N + M (x then s); ``split``: (nf, 2) column pairs
-    of free-variable splits.  Returns (carry, iterations enqueued);
-    status -1 = still running."""
-    core = _Core(A, c, l, u, split, dtype)
-    carry = carry0
+    u: (B, K) with K = N + M (x then s), in the iteration's dtype;
+    ``split``: (nf, 2) column pairs of free-variable splits.  Returns
+    (carry, iterations run); status -1 = still running.
+
+    Where simplex._graphs_on says so (a CUDA device, outside
+    segments.eager_loop()) every iteration is a replayed CUDA graph of
+    ``_Core.step`` (lp/segments.py, loop "ipm"), PIECE iterations a
+    replay; elsewhere the eager loop runs the same steps.  On a CUDA
+    device both read the running flag one piece late, so both run at
+    most one piece past the JAX package's stop; the CPU's eager loop
+    stops there."""
+    carry = tuple(x.contiguous() for x in carry0)
     if not bool((carry[6] < 0).any()):
         return carry, 0
     n = max(0, min(seg, max_iter - int(carry[7].max())))
-    cuda = carry[0].is_cuda
-    flags = (torch.empty(n, dtype=torch.bool, pin_memory=True)
-             if cuda and n else None)
-    pending = collections.deque()
-    steps = 0
-    for k in range(n):
-        active = (carry[6] < 0).any()
-        if k and cuda:
-            flags[k].copy_(active, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-            pending.append((k, ev))
-            stop = False
-            while pending and (len(pending) > _LAG or pending[0][1].query()):
-                j, ev_j = pending.popleft()
-                ev_j.synchronize()
-                if not bool(flags[j]):
-                    stop = True
-                    break
-            if stop:
-                break
-        elif k and not bool(active):
-            break
-        carry = core.step(carry, active)
-        steps += 1
-    return carry, steps
+    dev = carry[0].device
+    core = _Core(A, c, l, u, split)
+    if n and sx._graphs_on(dev):
+        st = _state_of(carry)
+        with segments.held(_graph_step, "ipm", st, core.tensors(), ()) as gs:
+            ran = _advance(gs.advance, lambda: (gs.state.status < 0).any(),
+                           n, PIECE, 1, dev)
+            return gs.unload(st).carry(), ran
+    state = [carry]
+
+    def advance(k):
+        for _ in range(k):
+            state[0] = core.step(state[0], (state[0][6] < 0).any())
+        segments.count_eager(k, "ipm")
+
+    ran = _advance(advance, lambda: (state[0][6] < 0).any(), n, 1,
+                   int(dev.type == "cuda"), dev)
+    return state[0], ran
 
 
 def _polish_one(As, z, y, zl, zu, l, u, c_s, max_rounds: int = 24):
@@ -742,8 +853,9 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
     2*M*M*itemsize; BENSOLVE_IPM_BYTES overrides).  ``device``: the
     torch device of the iteration; the host polish, certificates and
     HiGHS fallback run on the host whatever it is."""
-    global CALLS, HOST_FALLBACK, HOST_FALLBACK_SECONDS
+    global CALLS, HOST_FALLBACK, HOST_FALLBACK_SECONDS, PAST_STOP
     CALLS += 1
+    past0 = PAST_STOP
     dev = sx.resolve_device(device)
     dtype = np.dtype(dtype).type
     # BENSOLVE_IPM_MAXIT: budget override
@@ -923,12 +1035,18 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 IT_out[orig] = it_l[k]
                 written[orig] = True
 
+        # the running instances' iteration count: every running row has
+        # it, so a segment's iterations up to the JAX package's stop are
+        # what the largest count grew by
+        it_top = 0
         with _tf32_off():
             while True:
-                carry, _ = _ipm_core(A_dev, c_p, l_p, u_p, split_dev,
-                                     carry, seg, max_iter, dtype)
+                carry, ran = _ipm_core(A_dev, c_p, l_p, u_p, split_dev,
+                                       carry, seg, max_iter)
                 st_h = carry[6].cpu().numpy()
                 it_h = carry[7].cpu().numpy()
+                PAST_STOP += ran - (int(it_h.max()) - it_top)
+                it_top = int(it_h.max())
                 fin = st_h >= 0
                 real = live >= 0
                 n_fin_total = int(written.sum()) + int((fin & real).sum())
@@ -1221,6 +1339,6 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
         LAST.clear()
         LAST.update(batch=B, chunks=len(outs),
                     polished=int((prov == 1).sum()), polish_skipped=n_skipped,
-                    host_fallback=n_host)
+                    host_fallback=n_host, past_stop=PAST_STOP - past0)
     return LPResult(status, obj, x, s, row_dual, col_dual,
                     iters, None, None, quality)

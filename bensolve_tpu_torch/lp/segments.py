@@ -1,43 +1,51 @@
-"""Segments of the pivot loops as CUDA graphs: the torch counterpart of
+"""Segments of the device loops as CUDA graphs: the torch counterpart of
 the JAX package's device-side segment programs,
 ``bensolve_tpu/lp/simplex.py::_tableau_run_jit``,
-``lp/dual_simplex.py::_dual_run_jit`` and
-``lp/revised.py::_revised_run_jit`` (each a ``lax.while_loop`` over a
-pivot step that runs on the device between two host reads).
+``lp/dual_simplex.py::_dual_run_jit``, ``lp/revised.py::_revised_run_jit``
+and ``lp/ipm.py::_ipm_seg_jit`` (each a ``lax.while_loop`` over a step
+that runs on the device between two host reads).
 
-Run eagerly, every op of a pivot is a kernel launched from Python, about
-60 a step.  Here k steps of a step function are captured once into a
-``torch.cuda.CUDAGraph`` and replayed with one launch.  The loops keep
-their schedules, so the host reads fall on the same steps as in the
-eager loop: ``simplex._run_segmented`` reads the status between
-segments of 1, 2, 4, ... SEGMENT_MAX steps (``run`` below), and
-``revised._run`` also every 16 steps and at every multiple of its
-refactorization interval, where it decides on the host whether to
+Run eagerly, every op of a step is a kernel launched from Python, about
+60 a pivot and 350 an interior-point iteration.  Here k steps of a step
+function are captured once into a ``torch.cuda.CUDAGraph`` and replayed
+with one launch.  The loops keep their schedules, so the host reads fall
+on the same steps as in the eager loop: ``simplex._run_segmented`` reads
+the status between segments of 1, 2, 4, ... SEGMENT_MAX steps (``run``
+below), and ``revised._run`` also every 16 steps and at every multiple
+of its refactorization interval, where it decides on the host whether to
 refactorize and runs the refactorization eagerly between two replays on
-the set's buffers (through ``held``).  A piece of n steps between two reads replays the binary
-decomposition of n (37 = 32 + 4 + 1).
+the set's buffers (through ``held``).  ``ipm._ipm_core`` replays one
+iteration at a time and copies a flag (any instance running) to the host
+after each, reading it one iteration later.  A piece of n steps between
+two reads replays the binary decomposition of n (37 = 32 + 4 + 1).
 
 The cache holds one *graph set* per key: the step function, the device,
 and the shape and dtype of every field of the loop state and of every
 static input (c, lb, ub for the tableau steps, which are given None for
-A since neither reads it; A, A^T, c, lb, ub for the revised step).  A
-set holds static buffers for all of these, one memory pool, a side
-stream, and one graph per (k, TF32 setting), captured at its first use.
-Graph(k) runs k steps on the static buffers and ends by copying each
-new field back into them (the fields the step updates in place, W or
-B^-1 and the basis rows, are already there), so the state always lives
-in the buffers.  A use copies its start state and inputs in, replays,
-and copies the final state out: the fields updated in place back into
-the start state's own tensors, the tensors that the eager loop updates
-in place, and every other field into a new tensor.  So nothing a solve
-returns, a KeptState's W included, aliases the cache, and a new A of a
-cached shape is copied in before any replay reads it.  The sets hold at
-most ``simplex.TABLEAU_BYTES_BUDGET`` bytes of static buffers (one set
-alone may hold more): the least recently used set is evicted first and
-its graphs are reset.
+A since neither reads it; A, A^T, c, lb, ub for the revised step; A, c,
+l, u, the split pairs and the tensors derived from c, l, u for the
+interior-point step).  A set holds static buffers for all of these, one
+memory pool, a side stream, and one graph per (k, TF32 setting),
+captured at its first use.  Graph(k) runs k steps on the static buffers
+and ends by copying each new field back into them (the fields the step
+updates in place, W or B^-1 and the basis rows, are already there), so
+the state always lives in the buffers.  A use copies its start state and
+inputs in, replays, and copies the final state out: the fields updated
+in place back into the start state's own tensors, the tensors that the
+eager loop updates in place, and every other field into a new tensor.
+So nothing a solve returns, a KeptState's W included, aliases the cache,
+and a new A of a cached shape is copied in before any replay reads it.
+The sets hold at most ``simplex.TABLEAU_BYTES_BUDGET`` bytes of static
+buffers and memory pools (one set alone may hold more; a pool counts
+what the device's reserved memory grew by while its graphs were
+captured, about one step's peak): the least recently used set is evicted
+first and its graphs are reset.  The allocator's cache is emptied before
+every capture, because during one it frees no cached block, so a
+capture on a card full of cached memory (released pools, the warm-ups'
+blocks on other sets' streams) would fail.
 
 A replay launches the kernels that the eager steps launch, on the same
-inputs, so it pivots bit for bit as the eager loop.  The key holds
+inputs, so it steps bit for bit as the eager loop.  The key holds
 ``torch.backends.cuda.matmul.allow_tf32`` because cuBLAS bakes it into a
 captured product.  Before a set's first capture under a TF32 setting,
 WARMUP_STEPS steps run on scratch copies of the state on the side stream
@@ -60,7 +68,7 @@ Counters, plain integers read by chip_smoke.py: CAPTURES, REPLAYS,
 GRAPH_STEPS (steps run by replays), EAGER_STEPS (steps the eager loops
 ran, on any device), CAPTURE_S (seconds spent warming up and capturing),
 each over every loop, and the same split by loop in ``BY_LOOP``
-("tableau", "dual", "revised").
+("tableau", "dual", "revised", "ipm").
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ REPLAYS = 0
 GRAPH_STEPS = 0
 EAGER_STEPS = 0
 CAPTURE_S = 0.0
-LOOPS = ("tableau", "dual", "revised")
+LOOPS = ("tableau", "dual", "revised", "ipm")
 BY_LOOP = {name: dict(captures=0, replays=0, graph_steps=0, eager_steps=0,
                       capture_s=0.0) for name in LOOPS}
 
@@ -148,8 +156,14 @@ def cached_sets() -> int:
 
 
 def cached_bytes() -> int:
-    """The bytes of static buffers the graph sets hold now."""
-    return sum(s.nbytes for s in _SETS.values())
+    """The bytes of static buffers and memory pools the graph sets hold
+    now."""
+    return sum(s.nbytes + s.pool_bytes for s in _SETS.values())
+
+
+def cached_pool_bytes() -> int:
+    """The bytes of the graph sets' memory pools alone."""
+    return sum(s.pool_bytes for s in _SETS.values())
 
 
 def clear() -> None:
@@ -198,6 +212,14 @@ class _CudaGraphs:
 
         _CudaGraphs.on_side(stream, body)
         return graph
+
+    @staticmethod
+    def reserved(dev):
+        return torch.cuda.memory_reserved(dev)
+
+    @staticmethod
+    def empty_cache():
+        torch.cuda.empty_cache()
 
     @staticmethod
     def fence(dev):
@@ -252,6 +274,7 @@ class _GraphSet:
                                  for f in self.fields})
         self.inputs = tuple(_contiguous_like(x) for x in inputs)
         self.nbytes = _nbytes(self._buffers())
+        self.pool_bytes = 0   # what the captures reserved for the pool
         self.pool = backend.new_pool()
         self.stream = backend.new_stream(self.dev)
         self.graphs = {}      # (k, TF32 setting) -> graph
@@ -312,9 +335,18 @@ class _GraphSet:
             if tf32 not in self.warm:
                 self.backend.on_side(self.stream, self._warm_up)
                 self.warm.add(tf32)
+            # a capture's allocations come only from the device, as the
+            # allocator frees no cached block while a capture is under
+            # way: free the blocks other sets' released pools, the
+            # warm-up and eager work left cached
+            self.backend.empty_cache()
+            before = self.backend.reserved(self.dev)
             graph = self.backend.capture(self._segment(k), self.pool,
                                          self.stream)
+            self.pool_bytes += max(0, self.backend.reserved(self.dev)
+                                   - before)
             self.graphs[(k, tf32)] = graph
+            _trim(self)
             dt = time.perf_counter() - t0
             CAPTURES += 1
             CAPTURE_S += dt
@@ -347,6 +379,19 @@ def _key(step_fn, st, inputs):
     return (step_fn, st.status.device) + tuple(
         None if x is None else (tuple(x.shape), x.dtype)
         for x in [getattr(st, f) for f in _fields(st)] + list(inputs))
+
+
+def _trim(keep) -> None:
+    """Evict the least recently used sets other than ``keep`` while the
+    cache holds more than the budget (after ``keep``'s pool grew).
+    Holds _LOCK."""
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    for key in list(_SETS):
+        if cached_bytes() <= sx.TABLEAU_BYTES_BUDGET:
+            return
+        if _SETS[key] is not keep:
+            _SETS.pop(key).release()
 
 
 def _set_for(step_fn, loop, st, inputs, inplace):

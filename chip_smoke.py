@@ -75,9 +75,10 @@ Phases, one output line (or block) each:
    and device seconds, IPM iterations, statuses, quality, polish, the
    LPs bound for the host, whether the round meets the criterion of
    >= 90% resolved on the device and <= 10% to the host, chunks; ms per
-   iteration of the full batch beside the bounds of the work needed and
-   of the work done, and its split into the S build, the two Choleskys
-   and the solves; LPs 0-3 held to scipy/HiGHS (1e-3 relative at
+   iteration of the full batch (by replayed graphs) beside the bounds of
+   the work needed and of the work done (phase 19 splits an eager
+   iteration into the S build, the two Choleskys and the solves); LPs
+   0-3 held to scipy/HiGHS (1e-3 relative at
    float32, 1e-6 at float64).  These HiGHS solves run in two worker
    processes while the rounds go on.  Fails unless every LP ends
    OPTIMAL and the
@@ -157,10 +158,9 @@ Phases, one output line (or block) each:
    (OPTIMAL, oracle at 0.05); one phase-2 round of ex09's shape, B = 8 LPs
    4615x36943 of random_vlp(3, 4608, 36939, seed=7) at float32 under
    CONFIGS["ex09"]'s environment (every LP called OPTIMAL held to its
-   float64 certificates at 1e-2, ms per iteration split into the S build,
-   the Cholesky pair and the solves beside the S build's bound, peak
-   device memory).  No LP goes to host HiGHS: the ex07 flow runs with the
-   fallback off (its ITLIM LPs go to the IPM's rescue pass and float64
+   float64 certificates at 1e-2, ms per iteration by graph beside the S
+   build's bound, peak device memory).  No LP goes to host HiGHS: the
+   ex07 flow runs with the fallback off (its ITLIM LPs go to the IPM's rescue pass and float64
    simplex fallback on the device; capped at 0 they stay ITLIM and the
    Benson loop gives up on them) and the ex09 round with it capped at 0;
    the LPs bound for it are printed; the ex07 flow's IPM seconds split
@@ -194,14 +194,28 @@ Phases, one output line (or block) each:
    loop, over the counted steps), captures and their seconds; every
    run's final loop states (every field, W or B^-1, basis, at_upper,
    status and iters among them, and the revised loop's returned step)
-   equal bit for bit to the first eager run's;
+   equal bit for bit to the first eager run's.  Then the interior-point
+   iterations (ipm._ipm_core, graphs of _Core.step), each pair one
+   solve_batch_ipm call with the host fallback capped at 0: config #4's
+   P2 LPs at float32, B = 128 and B = 8 (a compaction tail's width), cut
+   at SEG_IPM_ITERS iterations without polish; the 155x303 P2 LP of
+   random_vlp(2, 150, 300) at float64, B = 64, to the end; B = 8 P2 LPs
+   of ex09's shape (the revised pair's instance) at float32, cut at
+   SEG_IPM_EX09_ITERS.  Per run: ms per iteration (a synchronised host
+   clock around every segment) beside phase 10's iteration bound,
+   captures and their seconds, peak device memory, and the last eager
+   run's split into the S build, the Cholesky pair and the solves
+   (CUDA events); every segment's carry, all 16 entries, bit for bit
+   the first eager run's;
 20. the result lines.
 
-After phases 5, 6, 8, 13, 17's example10 run and 18 a [segments] line
-prints the counters of lp/segments.py over that phase (captures and
-their seconds, replays, steps by graph and eager, in all and per loop:
-tableau, dual, revised); phases 5, 6, 8 and 13 fail unless they
-replayed graphs, phase 8 graphs of the revised loop.
+After phases 5, 6, 8, 10, 11, 13, 17's example10 run, 17 and 18 a
+[segments] line prints the counters of lp/segments.py over that phase
+(captures and their seconds, replays, steps by graph and eager, in all
+and per loop: tableau, dual, revised, ipm; the graph sets held, their
+static buffers and memory pools); phases 5, 6, 8, 10, 13 and 17 fail
+unless they replayed graphs, phase 8 graphs of the revised loop and
+phases 10 and 17 of the interior-point loop.
 
 The second-to-last line is one JSON object with the kernel's three
 variants (name, route, source, the TPU kernel it replaces, launches on
@@ -361,11 +375,23 @@ SEG_EX10_B = 256
 SEG_EX09 = dict(q=3, m=4608, n=36939, seed=7)
 SEG_EX09_B = 2
 SEG_EX09_STEPS = 1000
+# phase 19's interior-point pairs: config #4's P2 LPs at float32, B =
+# IPM_B and SEG_IPM_TAIL_B (a compaction tail's width), cut at
+# SEG_IPM_ITERS iterations; the P2 LP of random_vlp(*IPM_VLP) at float64,
+# B = SEG_IPM_VLP_B, to the end; SEG_IPM_EX09_B P2 LPs of ex09's shape
+# (SEG_EX09, the revised pair's instance) at float32, cut at
+# SEG_IPM_EX09_ITERS
+SEG_IPM_ITERS = 10
+SEG_IPM_TAIL_B = 8
+SEG_IPM_VLP_B = 64
+SEG_IPM_EX09_B = 8
+SEG_IPM_EX09_ITERS = 5
 # the phases after which the segment counters are printed, and those
-# that must have replayed graphs (phase 8: of the revised loop)
-SEGMENT_PHASES = ("5", "6", "8", "13", "17", "18")
-SEGMENT_REPLAY_GATE = ("5", "6", "8", "13")
-SEGMENT_LOOP_GATE = {"8": "revised"}
+# that must have replayed graphs (phase 8: of the revised loop; phases
+# 10 and 17: of the interior-point loop)
+SEGMENT_PHASES = ("5", "6", "8", "10", "11", "13", "17", "18")
+SEGMENT_REPLAY_GATE = ("5", "6", "8", "10", "13", "17")
+SEGMENT_LOOP_GATE = {"8": "revised", "10": "ipm", "17": "ipm"}
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1277,17 +1303,24 @@ def _iteration_bound(M, Nc, B, dtype, needed=True):
 
 class _IPMClock:
     """Wraps ipm._ipm_core with synchronised host clocks around every
-    segment, and (``split``) the S build, the Cholesky pair and the
-    solves of _Core with CUDA events, summed per batch width."""
+    segment (``keep``: and keeps the carry each returned), and
+    (``split``) the S build, the Cholesky pair and the solves of _Core
+    with CUDA events, summed per batch width.  A replayed graph makes no
+    Python call to time, so ``split`` runs the IPM eagerly
+    (segments.eager_loop)."""
 
-    def __init__(self, split=False):
+    def __init__(self, split=False, keep=False):
         from bensolve_tpu_torch.lp import ipm
 
-        self.ipm, self.split = ipm, split
+        self.ipm, self.split, self.keep = ipm, split, keep
         self.segments = []          # (batch rows, iterations, seconds)
+        self.carries = []
         self.events = {"S build": [], "Cholesky x2": [], "solves": []}
+        self.eager = contextlib.ExitStack()
 
     def __enter__(self):
+        from bensolve_tpu_torch.lp import segments
+
         ipm, real = self.ipm, self.ipm._ipm_core
         self.real = real
         self.real_parts = (ipm._Core.normal_matrix, ipm._Core.factor,
@@ -1300,10 +1333,13 @@ class _IPMClock:
             torch.cuda.synchronize()
             self.segments.append((c.shape[0], out[1],
                                   time.perf_counter() - t0))
+            if self.keep:
+                self.carries.append(out[0])
             return out
 
         ipm._ipm_core = timed
         if self.split:
+            self.eager.enter_context(segments.eager_loop())
             def evented(key, fn):
                 def run(*a, **kw):
                     e0 = torch.cuda.Event(enable_timing=True)
@@ -1322,6 +1358,7 @@ class _IPMClock:
         return self
 
     def __exit__(self, *exc):
+        self.eager.close()
         self.ipm._ipm_core = self.real
         nm, fa, so = self.real_parts
         self.ipm._Core.normal_matrix = nm
@@ -1340,7 +1377,7 @@ class _IPMClock:
     def part_ms(self, iterations):
         torch.cuda.synchronize()
         return {k: sum(a.elapsed_time(b) for a, b in v) / max(1, iterations)
-                for k, v in self.events.items()}
+                for k, v in self.events.items() if v}
 
 
 def phase_ipm_config4():
@@ -1386,7 +1423,7 @@ def _ipm_rounds(dtype, highs, pool):
     for r in range(1 + IPM_WARM_ROUNDS[dtype]):
         ub = extra_ub if r == 0 else extra_ub * (1.0 - 0.002 * r)
         calls = ipm.CALLS
-        with _IPMClock(split=(r == 0)) as clock:
+        with _IPMClock() as clock:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = t2.solve(ub)
@@ -1418,7 +1455,9 @@ def _ipm_rounds(dtype, highs, pool):
             f"statuses {{{', '.join(f'{int(k)}: {int(v)}' for k, v in st.items())}}} "
             f"quality {{{', '.join(f'{int(k)}: {int(v)}' for k, v in qu.items())}}}; "
             f"polished {last['polished']} polish-skipped "
-            f"{last['polish_skipped']}; chunks {last['chunks']}; bound for "
+            f"{last['polish_skipped']}; chunks {last['chunks']}; "
+            f"iterations past the JAX package's stop {last['past_stop']}; "
+            f"bound for "
             f"the host fallback {host.size} LPs; quality 0 on the device "
             f"{resolved:.3f} of the batch: criterion (>= 0.9 resolved, "
             f"<= 10% to the host) {'met' if met else 'NOT MET'}; "
@@ -1430,10 +1469,6 @@ def _ipm_rounds(dtype, highs, pool):
             f"S, both Choleskys) {done:.3f} ms ({flops_done / 1e9:.0f} "
             f"GFLOP) = {done / ms_it:.3f} of it")
         if r == 0:
-            parts = clock.part_ms(sum(n for _, n, _ in clock.segments))
-            log(f"[ipm] {dtype} cold, per iteration (CUDA events, all "
-                f"widths): " + ", ".join(f"{k} {v:.2f} ms"
-                                         for k, v in parts.items()))
             cold = res
             if dtype == "float32" and not met:
                 # the one round where the JAX package's method resolves
@@ -2275,18 +2310,17 @@ def phase_large():
         raise AssertionError("ex07 flow: the IPM route was not taken")
 
     q, m, n, B = LARGE_EX09
-    rec, _ = w.ex09_round("cuda", q, m, n, B, clock=_IPMClock(split=True))
+    rec, _ = w.ex09_round("cuda", q, m, n, B, clock=_IPMClock())
     log(f"[large] ex09 shape: {w.ex09_line(rec)}")
     M, Nc, width = rec["lp_shape"][0], rec["Nc"], rec["chunk_width"]
     s_bound = w.s_bound_ms(rec, PEAK_FLOPS["float32"])
     bound, bound_by, _ = _iteration_bound(M, Nc, width, "float32")
     done, _, _ = _iteration_bound(M, Nc, width, "float32", needed=False)
     ms = rec["ms_per_iteration"]
-    log(f"[large] ex09 shape: {ms:.2f} ms per iteration at B={width}; S "
-        f"build bound {s_bound:.2f} ms ({s_bound / width:.2f} per LP: 2 M^2 "
-        f"Nc flops at {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s), S build "
-        f"measured {rec['parts_ms'].get('S build', float('nan')):.2f} ms; "
-        f"iteration bound of the work needed {bound:.2f} ms ({bound_by}) = "
+    log(f"[large] ex09 shape: {ms:.2f} ms per iteration at B={width} by "
+        f"graph (phase 19's eager pair splits it); S build bound "
+        f"{s_bound:.2f} ms ({s_bound / width:.2f} per LP: 2 M^2 Nc flops at "
+        f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s); iteration bound of the work needed {bound:.2f} ms ({bound_by}) = "
         f"{bound / ms:.3f} of it, of the work done {done:.2f} ms = "
         f"{done / ms:.3f}; {smi_line()}")
     if not w.ex09_ok(rec):
@@ -2370,12 +2404,14 @@ def _segment_line(tag, gate=False):
         f"{k} {v['replays']} replays, {v['graph_steps']} by graph, "
         f"{v['eager_steps']} eager" for k, v in c["by_loop"].items()
         if v["replays"] or v["eager_steps"])
+    pools = segments.cached_pool_bytes()
     log(f"[segments] phase {tag}: {c['captures']} captures in "
         f"{c['capture_s']:.2f} s, {c['replays']} replays, "
         f"{c['graph_steps']} steps by graph, {c['eager_steps']} eager "
         f"({per or 'no loop ran'}); "
         f"{segments.cached_sets()} graph sets cached, "
-        f"{segments.cached_bytes() / 2**20:.1f} MiB of static buffers")
+        f"{(segments.cached_bytes() - pools) / 2**20:.1f} MiB of static "
+        f"buffers and {pools / 2**20:.1f} MiB of memory pools")
     if gate and c["replays"] == 0:
         raise AssertionError(f"phase {tag}: the pivot loops replayed no "
                              f"graph")
@@ -2561,6 +2597,7 @@ def phase_segments():
         lambda: simplex.solve_batch(*a, **kw))
     del a, kw
     out.update(_revised_pairs(gate))
+    out.update(_ipm_pairs(gate))
     log(f"[segments] {gate.passed} gates passed; {smi_line()}")
     return out
 
@@ -2612,10 +2649,8 @@ def _revised_pairs(gate):
         "tall largest batch", runs, *lp, a[2].shape[0], 8)
     del a, kw
 
-    t9, extra_ub = make_p2_instances(SEG_EX09_B, **SEG_EX09,
-                                     dtype=np.float64, device="cuda")
-    A9, c, rlb, rub, clb, cub = (t9.A_lp,) + tuple(
-        t9.build_inputs(extra_ub))
+    A9, *rest = _ex09_p2()
+    c, rlb, rub, clb, cub = (x[:SEG_EX09_B] for x in rest)
     M9, N9 = A9.shape
     sc = revised._prepare_scaled(A9, np.float64, torch.device("cuda"))
     r, cv = sc.rscale, sc.cscale
@@ -2643,8 +2678,151 @@ def _revised_pairs(gate):
             f"{every})", ex09, revised=True)
     out["ex09 shape"] = _revised_pair_line("ex09 shape", runs, M9, N9, Bp,
                                            8)
-    del st0, prep, sc, AT, c_t, lb_t, ub_t, t9
+    del st0, prep, sc, AT, c_t, lb_t, ub_t
     revised._S_CACHE.clear()
+    return out
+
+
+def _ex09_p2():
+    """The P2 LPs of ex09's shape, random_vlp(**SEG_EX09), made once for
+    phase 19's revised pair (its first SEG_EX09_B) and interior-point
+    pair (its first SEG_IPM_EX09_B): (A, c, row_lb, row_ub, col_lb,
+    col_ub)."""
+    if "ex09 p2" not in _RESULTS:
+        t9, extra_ub = make_p2_instances(max(SEG_EX09_B, SEG_IPM_EX09_B),
+                                         **SEG_EX09, dtype=np.float64,
+                                         device="cuda")
+        _RESULTS["ex09 p2"] = (t9.A_lp,) + tuple(t9.build_inputs(extra_ub))
+    return _RESULTS["ex09 p2"]
+
+
+def _ipm_pair(gate, name, solve, M, Nc, B, dtype):
+    """solve() (one solve_batch_ipm call) with the eager loop and with
+    graphs in turns (eager, graph, graph, eager): ms per iteration (a
+    synchronised host clock around every _ipm_core segment, over the
+    iterations the segments ran), captures and their seconds, peak
+    device memory; every segment's returned carry, all 16 entries, bit
+    for bit the first eager run's.  The last eager run also splits its
+    iterations by CUDA events (the S build, the Cholesky pair, the
+    solves; the first run pays the libraries' first calls).  Returns
+    the runs and the iteration bound at B."""
+    from bensolve_tpu_torch.lp import ipm, segments
+
+    runs, ref = [], None
+    for mode in ("eager", "graph", "graph", "eager"):
+        eager = mode == "eager"
+        segments.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (segments.eager_loop() if eager else contextlib.nullcontext()), \
+                _IPMClock(split=len(runs) == 3, keep=True) as clock:
+            solve()
+        peak = torch.cuda.max_memory_allocated()
+        c = segments.counts()["by_loop"]["ipm"]
+        its = sum(n for _, n, _ in clock.segments)
+        gate(its > 0 and (c["graph_steps"] == 0 and c["eager_steps"] == its
+                          if eager else c["eager_steps"] == 0
+                          and c["graph_steps"] == its and c["replays"] > 0),
+             f"{name}: a {mode} run took the other loop ({c}, {its} "
+             f"iterations)")
+        if ref is None:
+            ref = clock.carries
+        else:
+            gate(len(clock.carries) == len(ref),
+                 f"{name}: {len(clock.carries)} segments against {len(ref)}")
+            for i, (a, b) in enumerate(zip(ref, clock.carries)):
+                gate(len(a) == len(b) == 16, f"{name}: carry entries")
+                for k, (x, y) in enumerate(zip(a, b)):
+                    gate(x.shape == y.shape and torch.equal(_bits(x),
+                                                            _bits(y)),
+                         f"{name}: segment {i}'s carry[{k}] differs, {mode} "
+                         f"run {len(runs)} against the first eager run")
+        runs.append(dict(mode=mode, seconds=clock.device_seconds(),
+                         iterations=its, segments=len(clock.segments),
+                         past_stop=ipm.LAST["past_stop"],
+                         widths=sorted({b for b, _, _ in clock.segments},
+                                       reverse=True),
+                         ms_per_iteration=1e3 * clock.device_seconds() / its,
+                         captures=c["captures"], capture_s=c["capture_s"],
+                         replays=c["replays"], peak_mib=peak / 2**20,
+                         parts_ms=clock.part_ms(its)))
+    bound, bound_by, _ = _iteration_bound(M, Nc, B, dtype)
+    eager_ms = [r["ms_per_iteration"] for r in runs if r["mode"] == "eager"]
+    replay = runs[2]["ms_per_iteration"]
+    parts = ", ".join(f"{k} {v:.3f} ms"
+                      for k, v in runs[3]["parts_ms"].items())
+    log(f"[segments] IPM {name}: ms per iteration eager {eager_ms[0]:.3f}, "
+        f"graph {runs[1]['ms_per_iteration']:.3f} (with {runs[1]['captures']}"
+        f" captures in {runs[1]['capture_s']:.2f} s), graph {replay:.3f} "
+        f"({runs[2]['captures']} captures, {runs[2]['replays']} replays), "
+        f"eager {eager_ms[1]:.3f}; {runs[0]['iterations']} iterations in "
+        f"{runs[0]['segments']} segments at widths {runs[0]['widths']}, "
+        f"{runs[0]['past_stop']} of them past the JAX package's stop; "
+        f"replayed / eager {replay / np.mean(eager_ms):.3f}; phase 10's "
+        f"iteration bound at B={B} {bound:.4g} ms ({bound_by}) = "
+        f"{bound / replay:.3f} of the replayed, "
+        f"{bound / np.mean(eager_ms):.3f} of the eager; peak device memory "
+        f"MiB " + ", ".join(f"{r['mode']} {r['peak_mib']:.0f}" for r in runs)
+        + f"; last eager run per iteration ({parts}); every segment's "
+        f"carry bit for bit equal in every run (16 entries)")
+    return dict(runs=runs, bound_ms=bound, bound_by=bound_by, B=B, M=M,
+                Nc=Nc)
+
+
+def _ipm_pairs(gate):
+    """Phase 19's interior-point pairs (see SEG_IPM_ITERS), each one
+    solve_batch_ipm call with the host HiGHS fallback capped at 0 and,
+    where cut, no host polish (at ex09's shape the route polishes
+    nothing anyway)."""
+    from bensolve_tpu_torch.lp import ipm
+
+    out = {}
+    f32 = dict(dtype=np.float32, device="cuda")
+
+    def free_cols(clb, cub):
+        return int(np.sum(~np.isfinite(clb).any(axis=0)
+                          & ~np.isfinite(cub).any(axis=0)))
+
+    with host_fallback_cap(0):
+        t2, extra_ub = make_p2_instances(IPM_B, **IPM_CONFIG,
+                                         dtype=np.float32, device="cuda")
+        args = (t2.A_lp,) + tuple(t2.build_inputs(extra_ub))
+        M, N = t2.A_lp.shape
+        Nc = N + free_cols(args[4], args[5])
+        for B in (IPM_B, SEG_IPM_TAIL_B):
+            a = (args[0],) + tuple(x[:B] for x in args[1:])
+            out[f"config #4 B={B}"] = _ipm_pair(
+                gate, f"config #4 P2 LPs ({M}x{N}) B={B} float32 cut at "
+                f"{SEG_IPM_ITERS} iterations",
+                lambda a=a: ipm.solve_batch_ipm(
+                    *a, max_iter=SEG_IPM_ITERS, polish=False, **f32),
+                M, Nc, B, "float32")
+        del t2, args, a
+        q, m, n = IPM_VLP
+        tv, extra_ub = make_p2_instances(SEG_IPM_VLP_B, q=q, m=m, n=n,
+                                         seed=0, dtype=np.float64,
+                                         device="cuda")
+        args = (tv.A_lp,) + tuple(tv.build_inputs(extra_ub))
+        M, N = tv.A_lp.shape
+        out["random_vlp P2"] = _ipm_pair(
+            gate, f"random_vlp{IPM_VLP} P2 LPs ({M}x{N}) "
+            f"B={SEG_IPM_VLP_B} float64 to the end",
+            lambda: ipm.solve_batch_ipm(*args, dtype=np.float64,
+                                        device="cuda"),
+            M, N + free_cols(args[4], args[5]), SEG_IPM_VLP_B, "float64")
+        A9, *rest = _ex09_p2()
+        a = (A9,) + tuple(x[:SEG_IPM_EX09_B] for x in rest)
+        M, N = A9.shape
+        out["ex09 shape"] = _ipm_pair(
+            gate, f"ex09's shape: P2 LPs of random_vlp({SEG_EX09}) "
+            f"({M}x{N}) B={SEG_IPM_EX09_B} float32 cut at "
+            f"{SEG_IPM_EX09_ITERS} iterations",
+            lambda: ipm.solve_batch_ipm(*a, max_iter=SEG_IPM_EX09_ITERS,
+                                        polish=False, **f32),
+            M, N + free_cols(a[4], a[5]), SEG_IPM_EX09_B, "float32")
+    del a, A9, rest
+    _RESULTS.pop("ex09 p2", None)
+    ipm._CACHE.clear()
     return out
 
 

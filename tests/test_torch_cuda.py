@@ -13,7 +13,9 @@ stage launches the kernel; the driver entry (graft_entry) gives on the
 card what it gives on the CPU, and its dry run over ("dp", "tp") gives
 the unsharded result; the pivot loops replayed as CUDA graphs
 (lp/segments.py) pivot bit for bit as the eager loop, primal, dual,
-3-D and revised (``-k revised_graphs``).
+3-D and revised (``-k revised_graphs``), and the interior-point
+iterations replayed as CUDA graphs step bit for bit as the eager loop
+(``-k ipm_graphs``).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -322,7 +324,13 @@ def test_ipm_on_card_matches_cpu(cuda_device, case):
 def test_ipm_f32_runs_without_tf32(cuda_device, monkeypatch):
     """Every iteration of a float32 IPM solve sees allow_tf32 False, even
     when the caller left it on, and the result is the CPU's; the
-    caller's setting comes back after."""
+    caller's setting comes back after.  On the card the iterations are
+    replayed CUDA graphs of _Core.step (lp/segments.py): the cache is
+    emptied first, so every graph this solve replays is captured in it,
+    its steps seen by the spy, and each is keyed with TF32 off."""
+    from bensolve_tpu_torch.lp import segments
+
+    segments.clear()
     seen = []
     real = ipm._Core.step
 
@@ -340,6 +348,9 @@ def test_ipm_f32_runs_without_tf32(cuda_device, monkeypatch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert seen and not any(seen)
+    keys = [k for gs in segments._SETS.values() if gs.loop == "ipm"
+            for k in gs.graphs]
+    assert keys and not any(tf32 for _, tf32 in keys)
     cpu = ipm.solve_batch_ipm(*args, dtype=np.float32, device="cpu")
     np.testing.assert_array_equal(card.status, cpu.status)
     np.testing.assert_allclose(card.obj, cpu.obj, rtol=1e-3, atol=1e-3)
@@ -625,3 +636,75 @@ def test_revised_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, case,
             assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), f
     for f in ("status", "iters", "basis", "at_upper", "obj", "x"):
         np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)
+
+
+def _ipm_runs(run, monkeypatch):
+    """run() eagerly (segments.eager_loop) and by replayed graphs: per
+    mode (result, the carries ipm._ipm_core returned, the "ipm" loop's
+    counters)."""
+    from bensolve_tpu_torch.lp import segments
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        carries, real = [], ipm._ipm_core
+
+        def kept(*a):
+            out = real(*a)
+            carries.append(out)
+            return out
+
+        segments.reset_counts()
+        with monkeypatch.context() as m:
+            m.setattr(ipm, "_ipm_core", kept)
+            if mode == "eager":
+                with segments.eager_loop():
+                    res = run()
+            else:
+                res = run()
+        runs[mode] = (res, carries, segments.counts()["by_loop"]["ipm"])
+    (ref, eager, ce), (got, graph, cg) = runs["eager"], runs["graph"]
+    assert ce["replays"] == 0 and ce["eager_steps"] > 0
+    assert cg["replays"] > 0 and cg["eager_steps"] == 0
+    assert cg["graph_steps"] == ce["eager_steps"]
+    assert len(eager) == len(graph) > 0
+    for (a, ra), (b, rb) in zip(eager, graph):
+        assert ra == rb and len(a) == len(b) == 16
+        for k, (x, y) in enumerate(zip(a, b)):
+            assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), k
+    for f in ("status", "iters", "quality", "obj", "x", "s", "row_dual",
+              "col_dual"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f), f)
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ipm_graphs_equal_the_eager_loop_on_config4(cuda_device, dtype,
+                                                    monkeypatch):
+    """ipm._ipm_core by replayed CUDA graphs of _Core.step (lp/segments.py,
+    loop "ipm") against the eager loop on BASELINE config #4's P2 LPs
+    (LP 1011x2006) at B = 8, cut at 10 iterations: every entry of the
+    carry bit for bit, the results equal."""
+    from bensolve_tpu_torch.bench import make_p2_instances
+
+    monkeypatch.setenv("BENSOLVE_HOST_FALLBACK_MAX", "0")
+    t2, extra_ub = make_p2_instances(8, dtype=dtype, device=cuda_device)
+    args = (t2.A_lp,) + tuple(t2.build_inputs(extra_ub))
+    _ipm_runs(lambda: ipm.solve_batch_ipm(*args, max_iter=10, polish=False,
+                                          dtype=dtype, device=cuda_device),
+              monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [((24, 40, 4, 0), np.float64),
+                                  ((32, 64, 4, 11), np.float32)])
+def test_ipm_graphs_full_solve_equals_eager(cuda_device, case, monkeypatch):
+    """A whole solve_batch_ipm on tests/test_ipm.py's random batch, by
+    graphs and eagerly on the card: equal LPResults, every segment's
+    carry bit for bit, every LP OPTIMAL."""
+    shape, dtype = case
+    args = tuple(np.asarray(a, dtype) for a in ipm_batch(*shape))
+    ref = _ipm_runs(lambda: ipm.solve_batch_ipm(*args, dtype=dtype,
+                                                device=cuda_device),
+                    monkeypatch)
+    assert (ref.status == OPTIMAL).all()

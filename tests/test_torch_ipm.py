@@ -221,8 +221,7 @@ def test_one_segment_of_the_iteration(seg, tol):
     _assert_carries_close(jc, tc, 0)
     jc = jipm._ipm_seg_jit(A, c, l, u, split.astype(np.int32), jc, seg, 800)
     tc, steps = tipm._ipm_core(t[0], t[1], t[2], t[3],
-                               torch.from_numpy(split), tc, seg, 800,
-                               np.float64)
+                               torch.from_numpy(split), tc, seg, 800)
     assert steps == int(np.asarray(jc[7]).max()) <= seg
     np.testing.assert_array_equal(tc[6].numpy(), np.asarray(jc[6]))
     np.testing.assert_array_equal(tc[7].numpy(), np.asarray(jc[7]))

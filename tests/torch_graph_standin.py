@@ -1,14 +1,16 @@
 """A stand-in for the CUDA graph backend of
 bensolve_tpu_torch/lp/segments.py, so that the segment runners run on
 the CPU (tests/test_torch_segment_graphs.py,
-tests/test_torch_revised_graphs.py).
+tests/test_torch_revised_graphs.py, tests/test_torch_ipm_graphs.py).
 
 There is no CUDA graph on the CPU, so ``StandIn`` takes the backend's
 place: a capture records the segment's step calls and runs nothing (as a
 capture runs nothing), and a replay runs them on the static buffers.
 With it the runners' bookkeeping runs here: the cache and its keys, the
 copy-in and copy-out, the schedule of segments and its binary tails,
-eviction.
+eviction.  ``pool_per_capture`` bytes are "reserved" by every capture
+(0 unless a test sets it), so that the cache's count of its memory
+pools runs here too.
 """
 
 import contextlib
@@ -38,6 +40,7 @@ class StandIn:
 
     def __init__(self):
         self.captures = self.replays = self.resets = 0
+        self.pool_per_capture = self.reserved_bytes = self.emptied = 0
 
     def new_pool(self):
         return None
@@ -50,7 +53,14 @@ class StandIn:
 
     def capture(self, fn, pool, stream):
         self.captures += 1
+        self.reserved_bytes += self.pool_per_capture
         return _Recorded(self, fn)
+
+    def reserved(self, dev):
+        return self.reserved_bytes
+
+    def empty_cache(self):
+        self.emptied += 1
 
     def fence(self, dev):
         return None

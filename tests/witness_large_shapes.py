@@ -29,7 +29,9 @@ seed=7)`` stands in for them:
    float32 under ``CONFIGS["ex09"]``'s environment with the host
    fallback capped at 0 (HiGHS takes many minutes on a dense LP of this
    size): ms per IPM iteration (on the card split into the S build, the
-   Cholesky pair and the solves by CUDA events), iterations, statuses,
+   Cholesky pair and the solves by CUDA events, so the IPM runs eagerly
+   there: a replayed graph makes no Python call to time), iterations,
+   statuses,
    quality, the LPs bound for the host, peak device memory and the chunk
    width.  Every LP called OPTIMAL is held to certificates computed in
    float64 on the host from its (x, row duals): primal residual, bound
