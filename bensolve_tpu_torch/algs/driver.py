@@ -12,6 +12,7 @@ import time
 
 import numpy as np
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.algs import phases
 from bensolve_tpu_torch.algs.phases import Stats
 from bensolve_tpu_torch.algs.solution import (SolStatus, SolutionContext,
@@ -145,15 +146,28 @@ def solve(vlp: VLPProblem, opt: Options | None = None,
     ``resume``: path to a checkpoint written via
     Options.checkpoint_path (by this package or the JAX one): the
     phases before it and its phase's seeding are skipped, and the main
-    loop continues from the stored outer approximation."""
+    loop continues from the stored outer approximation.
+
+    While spans are recorded (spans.py) the solve is a ``solve`` span,
+    whose id every span inside it carries."""
+    if not spans.ON:
+        return _solve(vlp, opt, resume)
+    sp = spans.begin("solve", q=vlp.q, m=vlp.m, n=vlp.n)
+    try:
+        return _solve(vlp, opt, resume)
+    finally:
+        spans.end(sp)
+
+
+def _solve(vlp, opt, resume) -> VLPSolution:
     opt = opt if opt is not None else Options()
     opt.build_mesh()   # the mesh of mesh_axes, built once and cached
     dev = simplex.resolve_device(opt.device)
     if opt.profile_dir:
         return _profiled(
             opt.profile_dir, dev,
-            lambda: solve(vlp, dataclasses.replace(opt, profile_dir=""),
-                          resume=resume))
+            lambda: _solve(vlp, dataclasses.replace(opt, profile_dir=""),
+                           resume))
     stats = Stats()
     t0 = time.perf_counter()
 

@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.algs.solution import (SolStatus, SolutionContext,
                                               cone_vertenum)
 from bensolve_tpu_torch.algs.templates import (HOMOGENEOUS, INHOMOGENEOUS,
@@ -179,6 +180,7 @@ def _lp_kw(opt: Options, method) -> dict:
                 mesh=opt.build_mesh())
 
 
+@spans.traced("phase", phase="phase0")
 def phase0(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
            opt: Options, stats: Stats) -> None:
     """Compute eta in int(D* + K) with eta'c == 1 via a short serial
@@ -282,6 +284,7 @@ def _extract_R_H(sol: SolutionContext, lower_poly, opt: Options,
     sol.R, sol.H = res
 
 
+@spans.traced("phase", phase="phase1_primal")
 def phase1_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
                   opt: Options, stats: Stats,
                   resume_pair: PolytopePair | None = None) -> PolytopePair:
@@ -360,7 +363,9 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
             and not t2.prefers_shared_warm()))
     deferrals: dict[int, int] = {}
     what = "phase1_primal loop" if phase1 else "phase2_primal loop"
+    rnd = None   # the round's span while spans are recorded
     while True:
+        spans.end(rnd)
         frontier = P.frontier()
         if frontier.size == 0:
             break
@@ -370,6 +375,9 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
         if cand.size == 0:
             continue
         stats.rounds += 1
+        if spans.ON:
+            rnd = spans.begin("round", round=stats.rounds,
+                              candidates=int(cand.size))
         solve_idx = cand[dist.shard_indices(cand.size)] if distributed \
             else cand
         if verbose >= 3:
@@ -544,6 +552,7 @@ def _benson_primal_loop(pair: PolytopePair, t2: P2Template,
             break
         if on_round is not None:
             on_round(pair, stats)
+    spans.end(rnd)
 
 
 def phase2_init(sol: SolutionContext) -> None:
@@ -570,6 +579,7 @@ def _checkpoint_cb(opt: Options, sol: SolutionContext, phase: str,
     return cb
 
 
+@spans.traced("phase", phase="phase2_primal")
 def phase2_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
                   opt: Options, stats: Stats,
                   resume_pair: PolytopePair | None = None
@@ -634,6 +644,7 @@ def phase2_primal(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
     return pair
 
 
+@spans.traced("phase", phase="direction_preimages")
 def _direction_preimages(sol: SolutionContext, vlp: VLPProblem,
                          P_eff: np.ndarray, poly, stats: Stats,
                          opt: Options) -> None:
@@ -654,6 +665,7 @@ def _direction_preimages(sol: SolutionContext, vlp: VLPProblem,
         poly.primg[i, : vlp.n] = X[k]
 
 
+@spans.traced("phase", phase="phase1_dual")
 def phase1_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
                 opt: Options, stats: Stats,
                 resume_pair: PolytopePair | None = None) -> PolytopePair:
@@ -717,7 +729,9 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
         warm_mode == "per_candidate"
         or (warm_mode == "auto" and not distributed
             and not t1.prefers_shared_warm()))
+    rnd = None   # the round's span while spans are recorded
     while True:
+        spans.end(rnd)
         frontier = P.frontier()
         if frontier.size == 0:
             break
@@ -727,6 +741,9 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
         if cand.size == 0:
             continue
         stats.rounds += 1
+        if spans.ON:
+            rnd = spans.begin("round", round=stats.rounds,
+                              candidates=int(cand.size))
         solve_idx = cand[dist.shard_indices(cand.size)] if distributed \
             else cand
         if verbose >= 3:
@@ -824,9 +841,11 @@ def _benson_dual_loop(pair: PolytopePair, t1: P1Template,
             break
         if on_round is not None:
             on_round(pair, stats)
+    spans.end(rnd)
     return None
 
 
+@spans.traced("phase", phase="phase2_dual")
 def phase2_dual(sol: SolutionContext, vlp: VLPProblem, P_eff: np.ndarray,
                 opt: Options, stats: Stats,
                 resume_pair: PolytopePair | None = None

@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import (REVISED_RATIO, _kernel_eligible, simplex,
                                    solve_batch_auto)
 from bensolve_tpu_torch.lp.simplex import LPResult
@@ -116,6 +117,27 @@ class _TemplateBase:
 
     def _run(self, A_lp, obj, row_lb, row_ub, col_lb, col_ub,
              start_basis=None, _chunked=False) -> LPResult:
+        """The batch's LPs solved on the route the template's options
+        pick.  An outermost call (not a chunk of one) counts in the
+        ``lp_calls`` counter and, while recording, is an ``lp`` span
+        (spans.py)."""
+        args = (A_lp, obj, row_lb, row_ub, col_lb, col_ub, start_basis,
+                _chunked)
+        if _chunked:
+            return self._solve(*args)
+        spans.count_lp_call()
+        if not spans.ON:
+            return self._solve(*args)
+        M, N = A_lp.shape if not hasattr(A_lp, "M") else (A_lp.M, A_lp.N)
+        sp = spans.begin("lp", B=np.atleast_2d(obj).shape[0], M=M, N=N)
+        reads = spans.DEVICE_READS
+        try:
+            return self._solve(*args)
+        finally:
+            spans.end(sp, reads=spans.DEVICE_READS - reads)
+
+    def _solve(self, A_lp, obj, row_lb, row_ub, col_lb, col_ub,
+               start_basis, _chunked) -> LPResult:
         B = np.atleast_2d(obj).shape[0]
         if not _chunked:
             self.last_solve_no = getattr(self, "last_solve_no", 0) + 1
@@ -185,6 +207,8 @@ class _TemplateBase:
         if dual_route:
             from bensolve_tpu_torch.lp.dual_simplex import solve_batch_dual
 
+            if spans.ON:
+                spans.tag(route="dual")
             # without the mesh, as the JAX package calls it: on the
             # first dp entry's device
             out = solve_batch_dual(A_lp, obj, row_lb, row_ub, col_lb,

@@ -10,6 +10,8 @@ import os
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
+
 # N/M ratio from which a batch routes to the revised simplex: the
 # tableau carries (M+N)/M times more state than the basis inverse
 REVISED_RATIO = 4
@@ -48,6 +50,8 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
     if mesh is None and M + N >= min(ipm_min, _ipm_min_size()):
         from bensolve_tpu_torch.lp import ipm
 
+        if spans.ON:
+            spans.tag(route="ipm")
         ipm_kw = {}
         if "max_iter" in kw:
             ipm_kw["max_iter"] = kw["max_iter"]
@@ -57,6 +61,8 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
                                    warm_interior=warm_interior,
                                    device=kw.get("device", "cuda"), **ipm_kw)
     if N >= REVISED_RATIO * M:
+        if spans.ON:
+            spans.tag(route="revised")
         return revised.solve_batch_revised(A, c, row_lb, row_ub, col_lb,
                                            col_ub, mesh=mesh, verbose=verbose,
                                            **kw)
@@ -65,7 +71,11 @@ def solve_batch_auto(A, c, row_lb, row_ub, col_lb, col_ub, **kw):
         res = group_simplex.try_solve_batch(A, c, row_lb, row_ub, col_lb,
                                             col_ub, **kw)
         if res is not None:
+            if spans.ON:
+                spans.tag(route="kernel")
             return res
+    if spans.ON:
+        spans.tag(route="tableau")
     return simplex.solve_batch(A, c, row_lb, row_ub, col_lb, col_ub,
                                mesh=mesh, **kw)
 

@@ -22,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, DUAL_LOST,
                                            INFEASIBLE, ITLIM, OPTIMAL,
@@ -168,8 +169,8 @@ def _solve_dual_segmented(A, c, lb, ub, basis0, at_upper0, max_iter,
         st = sx._initial_state(A, c, lb, ub, basis0, at_upper0)
     st = _mark_dual_lost(A, c, lb, ub, st)
     st = sx._run_segmented(_dstep, A, c, lb, ub, st, max_iter)
-    status = st.status.cpu().numpy()
-    max_piv = int(st.iters.max())
+    status = spans.read(st.status)
+    max_piv = int(spans.read(st.iters.max()))
     # drift carried by the state's W: the inherited chain age plus this
     # solve's pivots (a start WITHOUT state_warm began from an exact
     # LU or from E itself, so its chain starts at max_piv)
@@ -273,7 +274,7 @@ def solve_batch_dual(A, c, row_lb, row_ub, col_lb, col_ub, *,
         # caller's batch (chunk concatenation relies on this)
         kept = sx.KeptState(kept.basis[:B], kept.in_basis[:B],
                             kept.at_upper[:B], kept.W[:B], kept.age)
-    res = sx._to_result(out, B, M, N)
+    res = sx._to_result(out, B, M, N, pivoted=True)
     retry = (res.status == DUAL_LOST) | (res.status == ITLIM)
     if retry_primal and retry.any():
         idx = np.flatnonzero(retry)

@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import simplex as sx
 
 BIG = 1e30  # stands in for +-inf inside the kernel (inf breaks 0*inf)
@@ -360,7 +361,8 @@ def solve_batch_group_reference(W0, c, lb, ub, basis0, at_upper0, max_iter,
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)
     k = 0
-    while bool((status == sx.RUNNING).any()) and k < _max_loop(max_iter):
+    while (bool(spans.read((status == sx.RUNNING).any()))
+           and k < _max_loop(max_iter)):
         running = status == sx.RUNNING
         viol_lo = xb < lbB - TOL_BND
         viol_up = xb > ubB + TOL_BND
@@ -604,8 +606,8 @@ def lp_batch_group(A, c, row_lb, row_ub, col_lb, col_ub, *,
     obj, x, s_act, row_dual, col_dual = sx._final_solutions(
         A_t, c_t, lbj, ubj, basis_l, in_basis, at_upper,
         c_t.gather(1, basis_l))
-    out = [t.cpu().numpy() for t in (status, obj, x, s_act, row_dual,
-                                     col_dual, iters, basis, at_upper)]
+    out = [spans.read(t) for t in (status, obj, x, s_act, row_dual,
+                                   col_dual, iters, basis, at_upper)]
     status, obj, x, s_act, row_dual, col_dual, iters, basis, at_upper = out
     return sx.LPResult(status[:B], obj[:B], x[:B, :N], s_act[:B, :M],
                        row_dual[:B, :M], col_dual[:B, :N], iters[:B],

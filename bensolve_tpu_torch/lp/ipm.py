@@ -61,6 +61,7 @@ import time as _time
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import segments
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.revised import _tf32_off
@@ -573,7 +574,7 @@ def _advance(advance, running, n, piece, ahead, dev) -> int:
             j, fence = pending.popleft()
             if fence is not None:
                 fence.synchronize()
-            if not bool(flags[j]):
+            if not bool(spans.read(flags[j])):
                 return done
     return done
 
@@ -594,9 +595,9 @@ def _ipm_core(A, c, l, u, split, carry0, seg, max_iter):
     most one piece past the JAX package's stop; the CPU's eager loop
     stops there."""
     carry = tuple(x.contiguous() for x in carry0)
-    if not bool((carry[6] < 0).any()):
+    if not bool(spans.read((carry[6] < 0).any())):
         return carry, 0
-    n = max(0, min(seg, max_iter - int(carry[7].max())))
+    n = max(0, min(seg, max_iter - int(spans.read(carry[7].max()))))
     dev = carry[0].device
     core = _Core(A, c, l, u, split)
     if n and sx._graphs_on(dev):
@@ -1014,7 +1015,7 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
             idx_t = torch.as_tensor(idx, device=dev)
 
             def host(k):
-                return carry[k].index_select(0, idx_t).cpu().numpy()
+                return spans.read(carry[k].index_select(0, idx_t))
 
             st_l = host(6)
             best = st_l < 0
@@ -1043,8 +1044,8 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
             while True:
                 carry, ran = _ipm_core(A_dev, c_p, l_p, u_p, split_dev,
                                        carry, seg, max_iter)
-                st_h = carry[6].cpu().numpy()
-                it_h = carry[7].cpu().numpy()
+                st_h = spans.read(carry[6])
+                it_h = spans.read(carry[7])
                 PAST_STOP += ran - (int(it_h.max()) - it_top)
                 it_top = int(it_h.max())
                 fin = st_h >= 0
@@ -1060,7 +1061,7 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 # PER-INSTANCE best-score freeze: an instance whose own
                 # best KKT score has not improved >10% for stall_cap
                 # consecutive segments is flushed from its best iterate
-                best = carry[14].cpu().numpy()
+                best = spans.read(carry[14])
                 if best_prev is None or best_prev.size != Bp_cur:
                     best_prev = best.copy()
                     noimp_segs = np.zeros(Bp_cur, int)
@@ -1105,7 +1106,7 @@ def solve_batch_ipm(A, c, row_lb, row_ub, col_lb, col_ub, *,
                               f"{Bp_cur}", flush=True)
         _flush(carry, np.arange(Bp_cur))
         if trace_on:
-            for k, hrow in enumerate(carry[16].cpu().numpy()):
+            for k, hrow in enumerate(spans.read(carry[16])):
                 if not hrow.any():
                     break
                 print(f"ipm it={k} mu={hrow[0]:.3e} pinf={hrow[1]:.3e} "

@@ -35,6 +35,7 @@ import types
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import segments
 from bensolve_tpu_torch.lp import simplex as sx
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, INFEASIBLE, ITLIM,
@@ -371,7 +372,7 @@ def _schedule(loop, step: int, cap: int, every: int) -> int:
     two reads and holds the state (``st``), the latest step's any-LP-ran
     flag (``ran``) and the last step on which some LP ran (``last``).
     Returns the step count."""
-    alive = bool((loop.st.status == RUNNING).any())
+    alive = bool(spans.read((loop.st.status == RUNNING).any()))
     seg = 1
     while alive and step < cap:
         loop.begin()
@@ -383,12 +384,14 @@ def _schedule(loop, step: int, cap: int, every: int) -> int:
                 st = loop.st
                 bad = ((st.status == RUNNING)
                        & ~torch.isfinite(st.xb).all(dim=1)).any()
-                ran_h, bad_h = torch.stack([loop.ran, bad]).tolist()
+                flags = torch.stack([loop.ran, bad])
+                ran_h, bad_h = spans.read(flags).tolist()
                 if ran_h and (periodic or (bad_h and t % 16 == 0)):
                     loop.refactor()
-        step, alive = torch.stack(
+        ends = torch.stack(
             [loop.last,
-             (loop.st.status == RUNNING).any().to(loop.last.dtype)]).tolist()
+             (loop.st.status == RUNNING).any().to(loop.last.dtype)])
+        step, alive = spans.read(ends).tolist()
         alive = bool(alive)
         seg = min(2 * seg, SEGMENT_MAX)
     return step

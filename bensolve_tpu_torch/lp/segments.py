@@ -426,19 +426,13 @@ def held(step_fn, loop, st, inputs, inplace):
         yield gs
 
 
-def run(step_fn, c, lb, ub, st, max_iter: int):
-    """simplex._run_segmented's loop with every segment a replayed graph
-    of ``step_fn`` (simplex._step or dual_simplex._dstep); ``st`` a
-    simplex._State of contiguous tensors on a device with a backend."""
-    from bensolve_tpu_torch.lp import simplex as sx
-
+def run(step_fn, c, lb, ub, st, loop):
+    """simplex._run_segmented's loop, on the schedule of ``loop`` (a
+    simplex._Loop), with every segment a replayed graph of ``step_fn``
+    (simplex._step or dual_simplex._dstep); ``st`` a simplex._State of
+    contiguous tensors on a device with a backend."""
     with held(step_fn, loop_of(step_fn), st, (None, c, lb, ub),
               ("W",)) as gs:
-        step, seg = 0, 1
-        while step < max_iter and bool((gs.state.status
-                                        == sx.RUNNING).any()):
-            n = min(seg, max_iter - step)
+        while n := loop.next(gs.state.status):
             gs.advance(n)
-            step += n
-            seg = min(2 * seg, sx.SEGMENT_MAX)
         return gs.unload(st)

@@ -35,6 +35,7 @@ import types
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import segments
 
 # status codes
@@ -651,12 +652,53 @@ def _run_segmented(step_fn, A, c, lb, ub, st: _State, max_iter: int):
     Where lp/segments.py has a graph backend for the device (CUDA), every
     segment is a replayed CUDA graph of the step, bit for bit the eager
     loop's pivots.  The eager loop runs instead where _graphs_on says
-    so: on the CPU (the plain version) and on a mesh's shard threads."""
+    so: on the CPU (the plain version) and on a mesh's shard threads.
+
+    A ``pivot`` span (spans.py) while recording; every call adds its
+    steps x Bp x Mp x NTp to the ``stepped_cells`` counter."""
     st = dataclasses.replace(st, **{
         f: getattr(st, f).contiguous() for f in segments.FIELDS})
+    sp = spans.begin("pivot") if spans.ON else None
+    loop = _Loop(max_iter)
     if _graphs_on(st.W.device):
-        return segments.run(step_fn, c, lb, ub, st, max_iter)
-    return _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter)
+        out = segments.run(step_fn, c, lb, ub, st, loop)
+    else:
+        out = _run_segmented_eager(step_fn, A, c, lb, ub, st, loop)
+    Bp, Mp, NTp = st.W.shape
+    spans.count_cells(stepped=loop.steps * Bp * Mp * NTp)
+    if sp is not None:
+        spans.end(sp, Bp=Bp, Mp=Mp, NTp=NTp, steps=loop.steps,
+                  segments=loop.segments)
+    return out
+
+
+class _Loop:
+    """A pivot loop's schedule: segments of 1, 2, 4, ... SEGMENT_MAX
+    steps up to ``max_iter`` in all, each after a read of the status
+    vector that finds an LP running.  The read blocks until the card has
+    run what was queued before it (a ``pivot.read`` span, counted in
+    ``device_reads``).  ``steps`` and ``segments`` count what ran."""
+
+    def __init__(self, max_iter: int):
+        self.max_iter = max_iter
+        self.steps = self.segments = 0
+        self._seg = 1
+
+    def next(self, status) -> int:
+        """The steps of the next segment; 0 where the loop ends."""
+        if self.steps >= self.max_iter:
+            return 0
+        sp = spans.begin("pivot.read") if spans.ON else None
+        running = bool(spans.read((status == RUNNING).any()))
+        if sp is not None:
+            spans.end(sp)
+        if not running:
+            return 0
+        n = min(self._seg, self.max_iter - self.steps)
+        self.steps += n
+        self.segments += 1
+        self._seg = min(2 * self._seg, SEGMENT_MAX)
+        return n
 
 
 def _graphs_on(dev) -> bool:
@@ -671,19 +713,15 @@ def _graphs_on(dev) -> bool:
             and not segments.eager_only())
 
 
-def _run_segmented_eager(step_fn, A, c, lb, ub, st, max_iter: int):
-    """Host loop around the pivot step.  State stays on the device; the
-    status vector comes back once per segment, and a segment is only
-    the number of pivots between two such reads.  Steps taken after an
-    LP finished leave its state unchanged."""
-    step, seg = 0, 1
-    while step < max_iter and bool((st.status == RUNNING).any()):
-        n = min(seg, max_iter - step)
+def _run_segmented_eager(step_fn, A, c, lb, ub, st, loop: _Loop):
+    """Host loop around the pivot step, on ``loop``'s schedule.  State
+    stays on the device; the status vector comes back once per segment,
+    and a segment is only the number of pivots between two such reads.
+    Steps taken after an LP finished leave its state unchanged."""
+    while n := loop.next(st.status):
         for _ in range(n):
             st = step_fn(A, c, lb, ub, st)
         segments.count_eager(n, segments.loop_of(step_fn))
-        step += n
-        seg = min(2 * seg, SEGMENT_MAX)
     return st
 
 
@@ -1030,7 +1068,7 @@ def _solve_tableau_tp(lay, devs, A_panels, c, lb, ub, basis0, at_upper0,
     ts = _tp_initial_state(lay, devs, A_panels, c, lb, ub, basis0, at_upper0)
     # eager: a panelled step crosses the row's devices (see _run_segmented)
     ts = _run_segmented_eager(lambda *a: _tp_step(a[-1]), None, None, None,
-                              None, ts, max_iter)
+                              None, ts, _Loop(max_iter))
     out = _tp_finish(ts)
     pmesh.record_split("tableau", ts.panels, ts.steps)
     return out
@@ -1244,11 +1282,16 @@ def _auto_chunk(M: int, N: int, itemsize: int) -> int:
     return min(MAX_CHUNK, 1 << (cap.bit_length() - 1))
 
 
-def _to_result(out, B, M, N) -> LPResult:
+def _to_result(out, B, M, N, pivoted: bool = False) -> LPResult:
     """The first B LPs of a padded solve's output tuple (tensors, or the
-    numpy arrays of a sharded solve) as an LPResult."""
+    numpy arrays of a sharded solve) as an LPResult.  ``pivoted``: the
+    output of _run_segmented's pivot loops, whose real LPs' iterations
+    x M x (M + N) add to the ``useful_cells`` counter."""
     (status, obj, x, s, row_dual, col_dual, iters, basis, at_upper) = (
-        o.cpu().numpy() if torch.is_tensor(o) else o for o in out)
+        spans.read(o) if torch.is_tensor(o) else o for o in out)
+    if pivoted:
+        spans.count_cells(
+            useful=int(iters[:B].astype(np.int64).sum()) * M * (M + N))
     return LPResult(status[:B], obj[:B], x[:B, :N], s[:B, :M],
                     row_dual[:B, :M], col_dual[:B, :N], iters[:B],
                     basis[:B].astype(np.int32), at_upper[:B])
@@ -1340,7 +1383,7 @@ def solve_batch(A, c, row_lb, row_ub, col_lb, col_ub, *,
             lambda d, c_t, lb_t, ub_t, b_t, u_t: _solve_tableau_segmented(
                 preps[d].dev, c_t, lb_t, ub_t,
                 *_shard_warm(b0, u0, b_t, u_t, d), max_iter))
-    return _to_result(out, B, M, N)
+    return _to_result(out, B, M, N, pivoted=not tp)
 
 
 def _batched_warm(b0, u0) -> tuple:
@@ -1429,4 +1472,4 @@ def _solve_batch_3d(A, c, row_lb, row_ub, col_lb, col_ub, *,
                 _solve_tableau_segmented(A_t, c_t, lb_t, ub_t,
                                          *_shard_warm(b0, u0, b_t, u_t, d),
                                          max_iter))
-    return _to_result(out, B0, M, N)
+    return _to_result(out, B0, M, N, pivoted=True)

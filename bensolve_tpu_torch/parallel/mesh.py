@@ -51,6 +51,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import simplex as sx
 
 
@@ -385,12 +386,14 @@ def map_shards(entries: list, batched: tuple, solve) -> tuple:
     devs = [d for e in entries for d in (e if isinstance(e, tuple) else (e,))]
     ambient = {d: torch.cuda.current_stream(d)
                for d in dict.fromkeys(devs) if d.type == "cuda"}
+    parent = spans.current()   # the shards' spans are this thread's
 
     def shard(entry, k):
         lead = entry[0] if isinstance(entry, tuple) else entry
         sl = slice(k * size, (k + 1) * size)
         ts = [None if a is None else sx._put(a[sl], lead) for a in batched]
-        return [o.cpu().numpy() for o in solve(entry, *ts)]
+        with spans.within(parent):
+            return [spans.read(o) for o in solve(entry, *ts)]
 
     with ThreadPoolExecutor(max_workers=n) as pool:
         futs = [pool.submit(on_own_stream, e, shard, e, k, after=ambient)

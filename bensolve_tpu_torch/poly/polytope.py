@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 
 from bensolve_tpu_torch import native as _native
+from bensolve_tpu_torch import spans
 
 POLY_EPS = 1e-9
 INIT_RANK_EPS = 1e-10    # rank threshold of the initial approx (bslv_poly.c:174)
@@ -299,6 +300,7 @@ class PolytopePair:
         return s - rhs
 
     # -- vertex insertion --------------------------------------------------
+    @spans.traced("poly", method="add_vertex")
     def add_vertex(self, val, ideal: bool = False, primg=None) -> bool:
         """Add a dual vertex / cut the primal with its halfspace
         (reference poly__add_vrtx, bslv_poly.c:104-151).  Returns False
@@ -482,6 +484,7 @@ class PolytopePair:
                 frames.pop()
 
     # -- initial approximation --------------------------------------------
+    @spans.traced("poly", method="initial_approx")
     def initial_approx(self) -> bool:
         """Build the first full-dimensional outer approximation from the
         queued halfspaces (reference poly__intl_apprx + poly__poly_initialise,
@@ -565,6 +568,7 @@ class PolytopePair:
         return True
 
     # -- maintenance / output helpers -------------------------------------
+    @spans.traced("poly", method="update_adjacency")
     def update_adjacency(self, poly: Polytope) -> None:
         """All-pairs adjacency rebuild via edge_test (reference
         poly__update_adjacence, bslv_poly.c:992-1010); used on the dual
@@ -580,6 +584,7 @@ class PolytopePair:
                     poly.adj[vb].append(va)
                     poly.adj[va].append(vb)
 
+    @spans.traced("poly", method="chop")
     def chop(self, eps_chop: float = 1e-10) -> None:
         """Zero near-zero output entries (poly_chop, bslv_algs.c:186-208)."""
         for poly in (self.primal, self.dual):
@@ -592,6 +597,7 @@ class PolytopePair:
                 g[np.abs(g) < eps_chop] = 0.0
                 poly.primg[live] = g
 
+    @spans.traced("poly", method="normalize_directions")
     def normalize_directions(self) -> None:
         """Scale ideal vertices to inf-norm 1 (poly_normalize_dir,
         bslv_algs.c:244-279)."""
@@ -601,6 +607,7 @@ class PolytopePair:
                 mx = np.max(np.abs(poly.data[i]))
                 poly.data[i] = poly.data[i] / mx if mx > 1e-9 else 0.0
 
+    @spans.traced("poly", method="check")
     def check(self) -> list[str]:
         """Invariant checker (reference poly__polyck, bslv_poly.c:940-990).
         Returns a list of violation messages (empty = healthy):
@@ -637,6 +644,7 @@ class PolytopePair:
                     errs.append(f"missing adjacency {va},{vb}")
         return errs
 
+    @spans.traced("poly", method="swap")
     def swap(self, out: "PolytopePair") -> None:
         """Rebuild the pair with primal/dual roles exchanged (reference
         poly__swap, bslv_poly.c:836-866): seed ``out`` with the facets of

@@ -195,7 +195,15 @@ HOST_COPIES = {
         '+         example08, example10, example11]}'],
     "vlp/problem.py": [],
     "vlp/reader.py": [],
-    "poly/polytope.py": [],
+    "poly/polytope.py": [
+        "+ from bensolve_tpu import spans",
+        '+     @spans.traced("poly", method="add_vertex")',
+        '+     @spans.traced("poly", method="initial_approx")',
+        '+     @spans.traced("poly", method="update_adjacency")',
+        '+     @spans.traced("poly", method="chop")',
+        '+     @spans.traced("poly", method="normalize_directions")',
+        '+     @spans.traced("poly", method="check")',
+        '+     @spans.traced("poly", method="swap")'],
     "algs/solution.py": [],
     "io/writers.py": [],
     "native/poly_engine.cpp": [],
