@@ -24,6 +24,7 @@ import torch
 
 from bensolve_tpu_torch import spans
 from bensolve_tpu_torch.lp import simplex as sx
+from bensolve_tpu_torch.lp import tableau_step
 from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, DUAL_LOST,
                                            INFEASIBLE, ITLIM, OPTIMAL,
                                            RUNNING, LPResult, _nb_value,
@@ -31,7 +32,19 @@ from bensolve_tpu_torch.lp.simplex import (BLAND_AFTER, DUAL_LOST,
 
 
 def _dstep(A, c, lb, ub, st: sx._State) -> sx._State:
-    """One dual pivot for every running LP of the batch."""
+    """One dual pivot for every running LP of the batch: on a CUDA device
+    the two kernels of lp/tableau_step.py, elsewhere ``_dstep_plain``."""
+    if tableau_step.on_card(st):
+        return tableau_step.step(c, lb, ub, st, dual=True)
+    return _dstep_plain(A, c, lb, ub, st)
+
+
+# which step a pivot loop runs (simplex._run_segmented prices for it)
+_dstep.dual = True
+
+
+def _dstep_plain(A, c, lb, ub, st: sx._State) -> sx._State:
+    """One dual pivot for every running LP of the batch, in torch ops."""
     TOL_BND, TOL_DJ, TOL_PIV = _tols(c.dtype)
     NT = c.shape[1]
     running = st.status == RUNNING
@@ -54,7 +67,7 @@ def _dstep(A, c, lb, ub, st: sx._State) -> sx._State:
     r_below = _take(below, r_idx)
 
     # --- reduced costs (fresh pricing, like the primal solver) --------
-    d = c - torch.bmm(st.cB[:, None, :], st.W)[:, 0, :]
+    d = sx._reduced_costs(c, st.cB, st.W)
 
     # --- entering column: dual ratio test on row r ---------------------
     alpha_row = st.W.gather(
@@ -98,7 +111,7 @@ def _dstep(A, c, lb, ub, st: sx._State) -> sx._State:
                          st.xb)
 
     # rank-1 tableau update, fused and in place exactly like the primal
-    # pivot (see simplex._step)
+    # pivot (see simplex._step_plain)
     w_r_scaled = alpha_row / alpha_rq[:, None]
     coef = alpha_col.scatter_add(1, r_idx[:, None],
                                  -torch.ones_like(alpha_rq)[:, None])

@@ -6,10 +6,12 @@ and ``lp/ipm.py::_ipm_seg_jit`` (each a ``lax.while_loop`` over a step
 that runs on the device between two host reads).
 
 Run eagerly, every op of a step is a kernel launched from Python, about
-60 a pivot and 350 an interior-point iteration.  Here k steps of a step
-function are captured once into a ``torch.cuda.CUDAGraph`` and replayed
-with one launch.  The loops keep their schedules, so the host reads fall
-on the same steps as in the eager loop: ``simplex._run_segmented`` reads
+70 a revised pivot and 350 an interior-point iteration (a tableau pivot
+on the card is two hand-written kernels, lp/tableau_step.py).  Here k
+steps of a step function are captured once into a
+``torch.cuda.CUDAGraph`` and replayed with one launch.  The loops keep
+their schedules, so the host reads fall on the same steps as in the
+eager loop: ``simplex._run_segmented`` reads
 the status between segments of 1, 2, 4, ... SEGMENT_MAX steps (``run``
 below), and ``revised._run`` also every 16 steps and at every multiple
 of its refactorization interval, where it decides on the host whether to
@@ -66,9 +68,12 @@ the tests and chip_smoke.py.
 
 Counters, plain integers read by chip_smoke.py: CAPTURES, REPLAYS,
 GRAPH_STEPS (steps run by replays), EAGER_STEPS (steps the eager loops
-ran, on any device), CAPTURE_S (seconds spent warming up and capturing),
-each over every loop, and the same split by loop in ``BY_LOOP``
-("tableau", "dual", "revised", "ipm").
+ran, on any device), KERNEL_STEPS (the steps of either that went through
+the hand-written step of lp/tableau_step.py: a replay adds the kernel
+steps its capture recorded, an eager segment those it launched),
+CAPTURE_S (seconds spent warming up and capturing), each over every
+loop, and the same split by loop in ``BY_LOOP`` ("tableau", "dual",
+"revised", "ipm").
 """
 
 from __future__ import annotations
@@ -85,10 +90,11 @@ CAPTURES = 0
 REPLAYS = 0
 GRAPH_STEPS = 0
 EAGER_STEPS = 0
+KERNEL_STEPS = 0
 CAPTURE_S = 0.0
 LOOPS = ("tableau", "dual", "revised", "ipm")
 BY_LOOP = {name: dict(captures=0, replays=0, graph_steps=0, eager_steps=0,
-                      capture_s=0.0) for name in LOOPS}
+                      kernel_steps=0, capture_s=0.0) for name in LOOPS}
 
 # steps run on scratch copies of the state before a set's first capture
 # under a TF32 setting (see above)
@@ -99,24 +105,27 @@ FIELDS = ("basis", "in_basis", "at_upper", "W", "xb", "lbB", "ubB", "cB",
           "status", "stall", "iters", "gamma")
 
 _LOCK = threading.Lock()            # one user of the cache at a time
-_COUNT_LOCK = threading.Lock()      # EAGER_STEPS, counted on any thread
+_COUNT_LOCK = threading.Lock()      # the eager counts, on any thread
 _SETS: collections.OrderedDict = collections.OrderedDict()
 _EAGER = threading.local()
+_TALLY = threading.local()          # kernel steps launched on this thread
 
 
 def counts() -> dict:
     return dict(captures=CAPTURES, replays=REPLAYS, graph_steps=GRAPH_STEPS,
-                eager_steps=EAGER_STEPS, capture_s=CAPTURE_S,
+                eager_steps=EAGER_STEPS, kernel_steps=KERNEL_STEPS,
+                capture_s=CAPTURE_S,
                 by_loop={k: dict(v) for k, v in BY_LOOP.items()})
 
 
 def reset_counts() -> None:
-    global CAPTURES, REPLAYS, GRAPH_STEPS, EAGER_STEPS, CAPTURE_S
-    CAPTURES = REPLAYS = GRAPH_STEPS = EAGER_STEPS = 0
+    global CAPTURES, REPLAYS, GRAPH_STEPS, EAGER_STEPS, KERNEL_STEPS
+    global CAPTURE_S
+    CAPTURES = REPLAYS = GRAPH_STEPS = EAGER_STEPS = KERNEL_STEPS = 0
     CAPTURE_S = 0.0
     for v in BY_LOOP.values():
         v.update(captures=0, replays=0, graph_steps=0, eager_steps=0,
-                 capture_s=0.0)
+                 kernel_steps=0, capture_s=0.0)
 
 
 def loop_of(step_fn) -> str:
@@ -127,11 +136,26 @@ def loop_of(step_fn) -> str:
     return "dual" if step_fn is dual_simplex._dstep else "tableau"
 
 
-def count_eager(n: int, loop: str) -> None:
-    global EAGER_STEPS
+def count_eager(n: int, loop: str, kernel: int = 0) -> None:
+    """n steps of ``loop`` run eagerly, ``kernel`` of them through the
+    hand-written step (their growth of ``tally()``)."""
+    global EAGER_STEPS, KERNEL_STEPS
     with _COUNT_LOCK:
         EAGER_STEPS += n
+        KERNEL_STEPS += kernel
         BY_LOOP[loop]["eager_steps"] += n
+        BY_LOOP[loop]["kernel_steps"] += kernel
+
+
+def tally_kernel_step() -> None:
+    """Called by lp/tableau_step.py for every step it launches, captured
+    or not, on the launching thread."""
+    _TALLY.n = tally() + 1
+
+
+def tally() -> int:
+    """The kernel steps launched on this thread so far."""
+    return getattr(_TALLY, "n", 0)
 
 
 @contextlib.contextmanager
@@ -261,6 +285,10 @@ def _contiguous_like(x):
         x, memory_format=torch.contiguous_format)
 
 
+def _clone(x):
+    return None if x is None else x.clone()
+
+
 class _GraphSet:
     """The static buffers, pool, side stream and graphs of one key.
     ``inputs``: the step's leading arguments (None stays None);
@@ -278,12 +306,13 @@ class _GraphSet:
         self.pool = backend.new_pool()
         self.stream = backend.new_stream(self.dev)
         self.graphs = {}      # (k, TF32 setting) -> graph
+        self.kernel_steps = {}  # the same key -> kernel steps captured
         self.warm = set()     # TF32 settings warmed up
         self.fence = None     # the last use's copy-out, on the card
 
     def _buffers(self):
-        return [getattr(self.state, f) for f in self.fields] + [
-            x for x in self.inputs if x is not None]
+        return [x for x in [getattr(self.state, f) for f in self.fields]
+                + list(self.inputs) if x is not None]
 
     def load(self, st, inputs):
         if self.fence is not None:
@@ -306,7 +335,7 @@ class _GraphSet:
         start state's own tensors, every other field into a new one."""
         out = type(st)(**{f: (getattr(st, f).copy_(getattr(self.state, f))
                               if f in self.inplace
-                              else getattr(self.state, f).clone())
+                              else _clone(getattr(self.state, f)))
                           for f in self.fields})
         self.fence = self.backend.fence(self.dev)
         return out
@@ -322,7 +351,7 @@ class _GraphSet:
         return run
 
     def _warm_up(self):
-        scratch = type(self.state)(**{f: getattr(self.state, f).clone()
+        scratch = type(self.state)(**{f: _clone(getattr(self.state, f))
                                       for f in self.fields})
         self._steps(scratch, WARMUP_STEPS)
 
@@ -341,8 +370,10 @@ class _GraphSet:
             # warm-up and eager work left cached
             self.backend.empty_cache()
             before = self.backend.reserved(self.dev)
+            k0 = tally()
             graph = self.backend.capture(self._segment(k), self.pool,
                                          self.stream)
+            self.kernel_steps[(k, tf32)] = tally() - k0
             self.pool_bytes += max(0, self.backend.reserved(self.dev)
                                    - before)
             self.graphs[(k, tf32)] = graph
@@ -356,13 +387,18 @@ class _GraphSet:
 
     def advance(self, n):
         """n steps: the graphs of n's binary decomposition, replayed."""
-        global REPLAYS, GRAPH_STEPS
+        global REPLAYS, GRAPH_STEPS, KERNEL_STEPS
         for k in _parts(n):
             self.graph(k).replay()
+            # the kernel steps the replayed capture launched
+            kernel = self.kernel_steps[
+                (k, torch.backends.cuda.matmul.allow_tf32)]
             REPLAYS += 1
             GRAPH_STEPS += k
+            KERNEL_STEPS += kernel
             BY_LOOP[self.loop]["replays"] += 1
             BY_LOOP[self.loop]["graph_steps"] += k
+            BY_LOOP[self.loop]["kernel_steps"] += kernel
 
     def release(self):
         """Reset the graphs and drop the buffers, once the last use's
@@ -372,6 +408,7 @@ class _GraphSet:
         for graph in self.graphs.values():
             graph.reset()
         self.graphs.clear()
+        self.kernel_steps.clear()
         self.state = self.inputs = None
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from bensolve_tpu_torch import spans
-from bensolve_tpu_torch.lp import segments
+from bensolve_tpu_torch.lp import segments, tableau_step
 
 # status codes
 RUNNING = 0
@@ -248,6 +248,9 @@ class _State:
     stall: torch.Tensor      # (B,) int32 consecutive degenerate steps
     iters: torch.Tensor      # (B,) int32
     gamma: torch.Tensor | None = None  # (B, NT) devex reference weights
+    # (B, NT) reduced costs of the next step, carried by the CUDA step
+    # (lp/tableau_step.py) from the start of a pivot loop; None elsewhere
+    d: torch.Tensor | None = None
 
 
 def _devex_entering(d, eligible, gamma, use_bland):
@@ -478,16 +481,35 @@ def _pivot(st, alpha, q_idx, ent, viol_lo, viol_up, feasible, new_status,
 
 
 def _step(A, c, lb, ub, st: _State) -> _State:
-    """One primal pivot for every running LP of the batch (the torch
-    form of the JAX package's ``_step``)."""
+    """One primal pivot for every running LP of the batch: on a CUDA
+    device the two kernels of lp/tableau_step.py (from a state whose
+    reduced costs ``d`` that module priced), elsewhere ``_step_plain``."""
+    if tableau_step.on_card(st):
+        return tableau_step.step(c, lb, ub, st, dual=False)
+    return _step_plain(A, c, lb, ub, st)
+
+
+# which step a pivot loop runs (_run_segmented prices for it)
+_step.dual = False
+
+
+def _reduced_costs(c_eff, cB_eff, W):
+    """c_eff - cB_eff W, the prices of the plain steps (one place, so
+    that a comparison can hand them the CUDA step's own prices)."""
+    return c_eff - torch.bmm(cB_eff[:, None, :], W)[:, 0, :]
+
+
+def _step_plain(A, c, lb, ub, st: _State) -> _State:
+    """One primal pivot for every running LP of the batch, in torch ops
+    (the torch form of the JAX package's ``_step``)."""
     TOL_DJ = _tols(c.dtype)[1]
     running = st.status == RUNNING
     zero = c.new_zeros(())
     viol_lo, viol_up, feasible, cB_eff = _phase_costs(st)
 
     # reduced costs d = c_eff - cB_eff @ W (duals y never materialized)
-    d = (torch.where(feasible[:, None], c, zero)
-         - torch.bmm(cB_eff[:, None, :], st.W)[:, 0, :])
+    d = _reduced_costs(torch.where(feasible[:, None], c, zero), cB_eff,
+                       st.W)
 
     # entering variable
     val = _nb_value(lb, ub, st.at_upper)
@@ -654,11 +676,18 @@ def _run_segmented(step_fn, A, c, lb, ub, st: _State, max_iter: int):
     loop's pivots.  The eager loop runs instead where _graphs_on says
     so: on the CPU (the plain version) and on a mesh's shard threads.
 
-    A ``pivot`` span (spans.py) while recording; every call adds its
-    steps x Bp x Mp x NTp to the ``stepped_cells`` counter."""
+    ``tableau_step.start`` readies the state for the step, told by its
+    ``dual`` attribute which one it is: on a CUDA device the steps are
+    the kernels of lp/tableau_step.py, which carry the reduced costs
+    from step to step, priced there once, before the first step.
+
+    A ``pivot`` span (spans.py) while recording, the pricing inside it;
+    every call adds its steps x Bp x Mp x NTp to the ``stepped_cells``
+    counter."""
+    sp = spans.begin("pivot") if spans.ON else None
     st = dataclasses.replace(st, **{
         f: getattr(st, f).contiguous() for f in segments.FIELDS})
-    sp = spans.begin("pivot") if spans.ON else None
+    st = tableau_step.start(c, st, getattr(step_fn, "dual", False))
     loop = _Loop(max_iter)
     if _graphs_on(st.W.device):
         out = segments.run(step_fn, c, lb, ub, st, loop)
@@ -719,9 +748,11 @@ def _run_segmented_eager(step_fn, A, c, lb, ub, st, loop: _Loop):
     and a segment is only the number of pivots between two such reads.
     Steps taken after an LP finished leave its state unchanged."""
     while n := loop.next(st.status):
+        k0 = segments.tally()
         for _ in range(n):
             st = step_fn(A, c, lb, ub, st)
-        segments.count_eager(n, segments.loop_of(step_fn))
+        segments.count_eager(n, segments.loop_of(step_fn),
+                             segments.tally() - k0)
     return st
 
 

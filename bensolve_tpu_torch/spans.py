@@ -16,7 +16,8 @@ the solve it belongs to and a few attributes:
   B, M, N, route (tableau, dual, revised, ipm or kernel) and reads (the
   blocking device reads inside it)
 * ``pivot``: one tableau pivot loop (``lp/simplex.py::_run_segmented``,
-  replayed graphs or eager steps); Bp, Mp, NTp, steps, segments
+  replayed graphs or eager steps, and on a CUDA device the pricing of
+  its start state); Bp, Mp, NTp, steps, segments
 * ``pivot.read``: the pivot loop's blocking status read before each
   segment and after the last (``simplex._Loop.next``); with the read,
   the card has run every segment queued before it

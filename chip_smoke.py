@@ -207,7 +207,35 @@ Phases, one output line (or block) each:
    run's split into the S build, the Cholesky pair and the solves
    (CUDA events); every segment's carry, all 16 entries, bit for bit
    the first eager run's;
-20. the result lines.
+20. the tableau pivot step's two kernels (lp/tableau_step.py: the
+   primal or dual choice kernel, then the update kernel), run right
+   after phase 3: example10 with both algorithms and example11 with the
+   primal one at float64 on the main path (each solved once just
+   before, so that its graphs are captured), segments' counters reset
+   just before each counted solve: KERNEL_STEPS equal to the tableau and dual
+   loops' steps (graph and eager) in all and per loop, none in the
+   revised and interior-point loops, the f32 group kernel not launched,
+   one pricing per loop; per solve the kernels' launches, and the pivot
+   loops' time (a synchronised host clock around each) beside the bound
+   benchmark/roofline.py gives for their steps on the unpadded LPs.
+   Then, from the first start state of every (step, Mp, NT, Bp) those
+   loops reached (ex10's (384, 768) at Bp 8 to 256, ex11's (48, 64) and
+   (80, 96) among them), one kernel step against one plain torch step
+   (simplex._step_plain, dual_simplex._dstep_plain), and again after
+   up to STEP_ADVANCE plain steps (the last state with an LP running):
+   fed the kernel's prices (through simplex._reduced_costs), the plain
+   step gives basis, in_basis, at_upper, status, stall, iters, the basic
+   bounds and costs, W, xb and gamma bit for bit on every LP; the
+   kernel's prices before the step and the reduced costs it carries
+   after it lie within STEP_D_TOL of their sum's scale from a fresh
+   c_eff - cB_eff W; the LPs that the plain step with its own cuBLAS
+   prices steps otherwise (near-ties of the pricing that sums in other
+   orders break apart) are printed.  At ex10's (384, 768) with Bp 8, 64
+   and 256 and ex11's shapes at Bp 8, the kernel step and the plain step
+   each as a replayed graph of STEP_GRAPH_K steps (CUDA events), each
+   kernel's share from torch.profiler, and the bound on the padded
+   tableau;
+21. the result lines.
 
 After phases 5, 6, 8, 10, 11, 13, 17's example10 run, 17 and 18 a
 [segments] line prints the counters of lp/segments.py over that phase
@@ -227,7 +255,11 @@ kernel - plain|, kernel, plain and bound times: the cluster variant's at
 example10's P2 shape, cold, and its time warm, and at the bench's device
 shape under bench_shape; the spill and the global variant's at (768,
 1152), cold, B = 8, with every phase-3 shape of theirs under shapes);
-the line before it is phase 18's {"graft": ...}; the
+then the three kernels of lp/csrc/tableau_step.cu (launches on phase
+20's main-path solves, per solve beside the pivot loops' ms and bound;
+their own, the kernel step's and the plain step's ms and the bound at
+example10's (384, 768) Bp 256, every timed shape, the worst carried
+reduced cost); the line before it is phase 18's {"graft": ...}; the
 last line is {"ok": true, "device": {...}}.  Any
 failed phase raises and exits non-zero before those lines.  Without a
 CUDA device, or without the package beside this
@@ -392,6 +424,41 @@ SEG_IPM_EX09_ITERS = 5
 SEGMENT_PHASES = ("5", "6", "8", "10", "11", "13", "17", "18")
 SEGMENT_REPLAY_GATE = ("5", "6", "8", "10", "13", "17")
 SEGMENT_LOOP_GATE = {"8": "revised", "10": "ipm", "17": "ipm"}
+# phase 20: the main path's float64 solves whose pivot loops it records
+# (label, example, algorithm); the (step, Mp, NT[, Bp]) their loops must
+# reach (ex10's at Bp 8 and 256, ex11's two shapes); the fields a kernel
+# step gives bit for bit as the plain step fed the same prices (none of
+# them is a sum: the kernels compute each with the torch step's
+# operations and roundings);
+# the carried reduced costs' limit, relative to the scale of their sum
+# (cuBLAS and the update kernel sum in different orders); the plain
+# steps taken from a loop start before its second comparison; the
+# (Mp, NT, Bp) timed as graphs of STEP_GRAPH_K steps, STEP_REPS replays;
+# the kernels' names in the device trace
+STEP_SOLVES = (("example10 primal", "example10", {}),
+               ("example10 dual", "example10", DUAL_KW),
+               ("example11 primal", "example11", {}))
+STEP_NEEDED = (("primal", 384, 768, 8), ("primal", 384, 768, 256),
+               ("dual", 384, 768, 8), ("dual", 384, 768, 256),
+               ("primal", 48, 64), ("dual", 48, 64), ("primal", 80, 96),
+               ("dual", 80, 96))
+STEP_EXACT = ("basis", "in_basis", "at_upper", "status", "stall", "iters",
+              "lbB", "ubB", "cB", "W", "xb", "gamma")
+STEP_D_TOL = 1e-13
+STEP_ADVANCE = 16
+STEP_TIMED = ((384, 768, 8), (384, 768, 64), (384, 768, 256), (48, 64, 8),
+              (80, 96, 8))
+STEP_GRAPH_K = 64
+STEP_REPS = 5
+STEP_KERNELS = ("primal_choice_kernel", "dual_choice_kernel",
+                "tableau_update_kernel")
+TABLEAU_SOURCE = "bensolve_tpu_torch/lp/csrc/tableau_step.cu"
+TABLEAU_REPLACES = {"primal_choice_kernel": "bensolve_tpu/lp/simplex.py:304",
+                    "dual_choice_kernel":
+                        "bensolve_tpu/lp/dual_simplex.py:37",
+                    "tableau_update_kernel":
+                        "bensolve_tpu/lp/simplex.py:304, "
+                        "bensolve_tpu/lp/dual_simplex.py:37"}
 # published H100 SXM peaks (float32 without TF32; float64 tensor cores)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -2826,6 +2893,314 @@ def _ipm_pairs(gate):
     return out
 
 
+class _StepRecorder:
+    """Wraps simplex._pad_batch_inputs and simplex._run_segmented while
+    the main path solves: the first loop start of each (step, Mp, NT,
+    Bp) with its c, lb and ub (``starts``, cloned contiguous, as the
+    loop steps them), and per loop call (``loops``) its key, the LPs
+    asked for and their unpadded M and N (from the padding call just
+    before, as benchmark/probes/pivot_clock.py takes them), the steps it
+    ran, the kernel steps among them and a synchronised host clock
+    around it; ``prices`` counts tableau_step.price calls (one update
+    kernel launch each)."""
+
+    def __enter__(self):
+        from bensolve_tpu_torch.lp import segments, simplex, tableau_step
+
+        self.sx, self.ts = simplex, tableau_step
+        self.real = (simplex._pad_batch_inputs, simplex._run_segmented,
+                     tableau_step.price)
+        self.starts, self.loops, self.prices = {}, [], 0
+        self._shape = None
+        real_pad, real_run, real_price = self.real
+
+        def pad(prep, c, *a, **kw):
+            self._shape = (np.atleast_2d(np.asarray(c)).shape[0], prep.M,
+                           prep.N)
+            return real_pad(prep, c, *a, **kw)
+
+        def run(step_fn, A, c, lb, ub, st, max_iter):
+            dual = getattr(step_fn, "dual", False)
+            Bp, Mp, NT = st.W.shape
+            key = ("dual" if dual else "primal", Mp, NT, Bp)
+            if key not in self.starts:
+                self.starts[key] = (c.contiguous().clone(),
+                                    lb.contiguous().clone(),
+                                    ub.contiguous().clone(),
+                                    _clone_state(st))
+            shape, self._shape = self._shape, None
+            s0 = segments.GRAPH_STEPS + segments.EAGER_STEPS
+            k0 = segments.KERNEL_STEPS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_run(step_fn, A, c, lb, ub, st, max_iter)
+            torch.cuda.synchronize()
+            self.loops.append(dict(
+                key=key, shape=shape, dtype=str(c.dtype).split(".")[-1],
+                steps=segments.GRAPH_STEPS + segments.EAGER_STEPS - s0,
+                kernel_steps=segments.KERNEL_STEPS - k0,
+                seconds=time.perf_counter() - t0))
+            return out
+
+        def price(*a, **kw):
+            self.prices += 1
+            return real_price(*a, **kw)
+
+        simplex._pad_batch_inputs, simplex._run_segmented = pad, run
+        tableau_step.price = price
+        return self
+
+    def __exit__(self, *exc):
+        (self.sx._pad_batch_inputs, self.sx._run_segmented,
+         self.ts.price) = self.real
+
+
+def _clone_state(st):
+    """A contiguous copy of every field of a tableau loop state."""
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone(
+            memory_format=torch.contiguous_format)
+        for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
+
+
+def _d_error(gate, tag, dual, c, st):
+    """The worst distance of ``st.d`` from a fresh c_eff - cB_eff W, over
+    the scale of that sum (|c_eff| + |cB_eff| |W|); fails past
+    STEP_D_TOL."""
+    from bensolve_tpu_torch.lp import simplex
+
+    if dual:
+        feas, cbe = torch.ones_like(st.status, dtype=torch.bool), st.cB
+    else:
+        _, _, feas, cbe = simplex._phase_costs(st)
+    ce = torch.where(feas[:, None], c, torch.zeros_like(c))
+    d = ce - torch.bmm(cbe[:, None, :], st.W)[:, 0, :]
+    scale = ce.abs() + torch.bmm(cbe.abs()[:, None, :], st.W.abs())[:, 0, :]
+    err = (st.d - d).abs()
+    gate(bool((err <= STEP_D_TOL * scale).all()),
+         f"{tag}: reduced costs {float((err / scale).max())} of their scale "
+         f"from a fresh c_eff - cB_eff W (limit {STEP_D_TOL})")
+    return float((err / scale.clamp_min(1e-300)).max())
+
+
+def _rows_differ(x, y):
+    """(B,) True where the rows of two state fields differ in any bit."""
+    if x is None or y is None:
+        return None if x is y else True
+    return (_bits(x) != _bits(y)).reshape(x.shape[0], -1).any(1)
+
+
+def _step_compare(gate, tag, dual, c, lb, ub, st):
+    """One kernel step (tableau_step.price, then step) from ``st`` against
+    the plain torch step from the same state, twice.  Fed the kernel's
+    own prices (simplex._reduced_costs handing it the priced d), the
+    plain step must give every STEP_EXACT field bit for bit on every LP.
+    With its own (cuBLAS) prices, the LPs it steps otherwise are
+    counted: there the two sums, in other orders, broke a near-tie of
+    the pricing apart.  The kernel's prices before the step and the
+    reduced costs it carries after it lie within STEP_D_TOL of their
+    sums' scale from a fresh c_eff - cB_eff W.  Returns (the worst such
+    ratio, LPs running before the step, LPs whose iterations or status
+    it changed, the LPs stepped otherwise under cuBLAS's prices)."""
+    from bensolve_tpu_torch.lp import dual_simplex, simplex, tableau_step
+
+    plain = dual_simplex._dstep_plain if dual else simplex._step_plain
+    priced = tableau_step.price(c, _clone_state(st), dual)
+    worst = _d_error(gate, f"{tag}, before the step", dual, c, priced)
+    prices, real = priced.d.clone(), simplex._reduced_costs
+    simplex._reduced_costs = lambda *a: prices.clone()
+    try:
+        fed = plain(None, c, lb, ub, _clone_state(st))
+    finally:
+        simplex._reduced_costs = real
+    own = plain(None, c, lb, ub, _clone_state(st))
+    got = tableau_step.step(c, lb, ub, priced, dual)
+    torch.cuda.synchronize()
+    other = torch.zeros_like(st.status, dtype=torch.bool)
+    for f in STEP_EXACT:
+        x, y = getattr(fed, f), getattr(got, f)
+        rows = _rows_differ(x, y)
+        if rows is not None and rows is not True and bool(rows.any()):
+            log(f"[tableau step] {tag}: {f} differs on LPs "
+                f"{torch.nonzero(rows).flatten().tolist()[:16]}")
+        gate(rows is None or (rows is not True and not bool(rows.any())),
+             f"{tag}: {f} differs from the plain step's fed the same "
+             f"prices")
+        rows = _rows_differ(getattr(own, f), y)
+        if rows is not None:
+            other |= rows
+    worst = max(worst, _d_error(gate, f"{tag}, after the step", dual, c,
+                                got))
+    running = int((st.status == simplex.RUNNING).sum())
+    changed = (got.iters != st.iters) | (got.status != st.status)
+    return (worst, running, int(changed.sum()),
+            torch.nonzero(other).flatten().tolist())
+
+
+def _graph_step_ms(step, c, lb, ub, st, profile=False):
+    """ms per step of a CUDA graph of STEP_GRAPH_K steps of ``step`` from
+    a copy of ``st``, replayed STEP_REPS times (CUDA events); with
+    ``profile``, also each tableau_step kernel's device ms per step in
+    one more replay (torch.profiler; {} where it sees no device time)."""
+    st = _clone_state(st)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x = _clone_state(st)
+        for _ in range(3):
+            x = step(None, c, lb, ub, x)
+    torch.cuda.current_stream().wait_stream(side)
+    del x
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x = st
+        for _ in range(STEP_GRAPH_K):
+            x = step(None, c, lb, ub, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _time_ms(graph.replay, STEP_REPS) / STEP_GRAPH_K
+    per = {}
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof
+
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            graph.replay()
+            torch.cuda.synchronize()
+        for ev in p.key_averages():
+            t = (getattr(ev, "device_time_total", 0)
+                 or getattr(ev, "cuda_time_total", 0))
+            for name in STEP_KERNELS:
+                if name in ev.key and t:
+                    per[name] = per.get(name, 0.0) + t / 1e3 / STEP_GRAPH_K
+    graph.reset()
+    return ms, per
+
+
+def phase_tableau_step():
+    """The tableau pivot step's two kernels (lp/tableau_step.py) on the
+    main path (see the module's docstring)."""
+    from benchmark.roofline import pivot_step_least_s
+    from bensolve_tpu_torch.lp import (dual_simplex, group_simplex, segments,
+                                       simplex, tableau_step)
+
+    gate = _Gates("tableau step")
+    t0 = time.perf_counter()
+    tableau_step._library()
+    log(f"[tableau step] library built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    main = {}
+    with _StepRecorder() as rec:
+        for label, name, kw in STEP_SOLVES:
+            # once first, so that the counted solve replays the graphs
+            # this one captured (as every solve after a process's first)
+            _solve(name, _options(**kw))
+            n0 = len(rec.loops)
+            p0 = rec.prices
+            g0 = group_simplex.CALLS
+            segments.reset_counts()
+            r, wall = _solve(name, _options(**kw))
+            c = segments.counts()
+            by = c["by_loop"]
+            loops = rec.loops[n0:]
+            steps = {k: by[k]["graph_steps"] + by[k]["eager_steps"]
+                     for k in ("tableau", "dual")}
+            gate(r.status.name == "OPTIMAL", f"{label}: {r.status}")
+            gate(c["kernel_steps"] == sum(steps.values()) > 0,
+                 f"{label}: KERNEL_STEPS {c['kernel_steps']} against the "
+                 f"loops' {steps}")
+            for k in ("tableau", "dual"):
+                gate(by[k]["kernel_steps"] == steps[k],
+                     f"{label}: {k} loop kernel steps {by[k]}")
+            gate(by["revised"]["kernel_steps"] == by["ipm"]["kernel_steps"]
+                 == 0, f"{label}: kernel steps outside the tableau loops")
+            gate(group_simplex.CALLS == g0,
+                 f"{label}: the f32 group kernel was launched")
+            gate(rec.prices - p0 == len(loops),
+                 f"{label}: {rec.prices - p0} pricings for {len(loops)} "
+                 f"loops")
+            gate(all(lp["shape"] is not None for lp in loops),
+                 f"{label}: a loop without its padding call")
+            bound = 1e3 * sum(
+                lp["steps"] * pivot_step_least_s(*lp["shape"], lp["dtype"])
+                for lp in loops)
+            loop_ms = 1e3 * sum(lp["seconds"] for lp in loops)
+            main[label] = dict(
+                launches_primal_choice=by["tableau"]["kernel_steps"],
+                launches_dual_choice=by["dual"]["kernel_steps"],
+                launches_update=c["kernel_steps"] + rec.prices - p0,
+                loops=len(loops), loop_ms=loop_ms, bound_ms=bound,
+                wall_s=wall)
+            log(f"[tableau step] {label}: {r.status.name} in {wall:.2f} s; "
+                f"KERNEL_STEPS {c['kernel_steps']} = tableau "
+                f"{steps['tableau']} + dual {steps['dual']} steps "
+                f"(graph + eager); {len(loops)} loops, each priced once; "
+                f"update kernel launches {main[label]['launches_update']}; "
+                f"pivot loops {loop_ms:.1f} ms (synchronised host clock) "
+                f"against a bound of {bound:.2f} ms "
+                f"({100 * bound / loop_ms:.1f}%); group_simplex launches "
+                f"unchanged")
+    keys = sorted(rec.starts, key=lambda k: (k[1], k[3], k[0]))
+    compared = {}
+    for key in keys:
+        dual = key[0] == "dual"
+        c, lb, ub, st = rec.starts[key]
+        tag = f"{key[0]} ({key[1]}, {key[2]}) Bp {key[3]}"
+        worst, running, moved, other = _step_compare(
+            gate, tag + " loop start", dual, c, lb, ub, st)
+        plain = dual_simplex._dstep_plain if dual else simplex._step_plain
+        ahead = 0
+        while ahead < STEP_ADVANCE:
+            nxt = plain(None, c, lb, ub, st)
+            if not bool((nxt.status == simplex.RUNNING).any()):
+                break
+            st, ahead = nxt, ahead + 1
+        w2, r2, m2, o2 = _step_compare(gate, f"{tag} after {ahead} steps",
+                                       dual, c, lb, ub, st)
+        gate(moved + m2 > 0, f"{tag}: neither step changed an LP")
+        compared[key] = dict(worst_d=max(worst, w2), running=(running, r2),
+                             changed=(moved, m2), ahead=ahead,
+                             other_under_cublas=(other, o2))
+        log(f"[tableau step] {tag}: one step from the loop start "
+            f"({running} LPs running, {moved} changed) and after {ahead} "
+            f"plain steps ({r2} running, {m2} changed): "
+            f"{', '.join(STEP_EXACT)} bit for bit the plain step's fed the "
+            f"same prices; the prices within {max(worst, w2):.1e} of their "
+            f"scale (limit {STEP_D_TOL}); LPs stepped otherwise under "
+            f"cuBLAS's prices {other} and {o2}")
+    timed = {}
+    for key in keys:
+        if (key[1], key[2], key[3]) not in STEP_TIMED:
+            continue
+        dual = key[0] == "dual"
+        c, lb, ub, st = rec.starts[key]
+        plain = dual_simplex._dstep_plain if dual else simplex._step_plain
+        kern = dual_simplex._dstep if dual else simplex._step
+        plain_ms, _ = _graph_step_ms(plain, c, lb, ub, st)
+        kernel_ms, per = _graph_step_ms(
+            kern, c, lb, ub, tableau_step.price(c, _clone_state(st), dual),
+            profile=True)
+        bound = 1e3 * pivot_step_least_s(key[3], key[1], key[2] - key[1],
+                                         "float64")
+        timed[key] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          per_kernel_ms=per)
+        log(f"[tableau step] {key[0]} ({key[1]}, {key[2]}) Bp {key[3]}: "
+            f"kernel step {kernel_ms:.5f} ms ("
+            + (", ".join(f"{k} {v:.5f}" for k, v in per.items())
+               or "the profiler saw no device time")
+            + f"), plain step {plain_ms:.5f} ms, both as replayed graphs "
+            f"of {STEP_GRAPH_K} steps (CUDA events); bound {bound:.5f} ms "
+            f"on the padded tableau: {100 * bound / kernel_ms:.1f}% of "
+            f"it, {plain_ms / kernel_ms:.1f}x the plain step")
+    del rec
+    torch.cuda.empty_cache()
+    for need in STEP_NEEDED:
+        gate(any(k[0] == need[0] and k[1:3] == need[1:3]
+                 and (len(need) == 3 or k[3] == need[3]) for k in keys),
+             f"no recorded loop of {need}")
+    log(f"[tableau step] {gate.passed} gates passed; {smi_line()}")
+    return dict(main=main, compared=compared, timed=timed)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2844,6 +3219,7 @@ def main() -> int:
         return 0
     _timed("2", phase_build)
     ex10, ex10_w, spill, bench_shape = _timed("3", phase_kernel)
+    tableau = _timed("20", phase_tableau_step)
     # phase 5 first: phase 4 holds its float32 directions to its run
     primal = _timed("5", phase_main_f64)
     launches = _timed("4", phase_main_f32)
@@ -2906,11 +3282,42 @@ def main() -> int:
                              ms_warm=ex10_w["ms_global"],
                              plain_ms=ex10["plain_ms"],
                              bound_ms=ex10["bound_ms"]),
-             bench_shape=_shape_numbers(bench_shape, "ms_global"))]}))
+             bench_shape=_shape_numbers(bench_shape, "ms_global"))]
+        + [_tableau_entry(tableau, name) for name in STEP_KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _tableau_entry(out, name):
+    """A kernel of lp/csrc/tableau_step.cu on the kernels line: its
+    launches on phase 20's main-path solves (KERNEL_STEPS by loop, and
+    for the update kernel the loops' pricings too), per solve with the
+    pivot loops' ms beside their bound; at ex10's (384, 768) Bp 256 its
+    own device ms (profiler; None where it saw none), the kernel step's
+    and the plain step's ms, and the step's bound; every timed shape of
+    its step; the worst carried reduced cost from the comparisons."""
+    key = {"primal_choice_kernel": "launches_primal_choice",
+           "dual_choice_kernel": "launches_dual_choice",
+           "tableau_update_kernel": "launches_update"}[name]
+    step = "dual" if name.startswith("dual") else "primal"
+    steps = (step,) if name != "tableau_update_kernel" else ("primal",
+                                                             "dual")
+    ex10 = out["timed"].get((step, 384, 768, 256), {})
+    return dict(
+        name=name, route="cuda", source=TABLEAU_SOURCE,
+        replaces=TABLEAU_REPLACES[name], library_ms=None,
+        launches=sum(v[key] for v in out["main"].values()),
+        launches_by_solve={k: v[key] for k, v in out["main"].items()},
+        main_path={k: dict(loop_ms=v["loop_ms"], bound_ms=v["bound_ms"])
+                   for k, v in out["main"].items()},
+        ms=ex10.get("per_kernel_ms", {}).get(name), step_ms=ex10.get("ms"),
+        plain_ms=ex10.get("plain_ms"), bound_ms=ex10.get("bound_ms"),
+        shapes={f"{k[0]} ({k[1]}, {k[2]}) Bp {k[3]}": v
+                for k, v in out["timed"].items() if k[0] in steps},
+        max_rel_err_d=max(v["worst_d"] for k, v in out["compared"].items()
+                          if k[0] in steps))
 
 
 def _shape_numbers(out, ms_key):
@@ -2934,7 +3341,8 @@ PHASES = {"2": phase_build, "3": phase_kernel, "4": _phase_4,
           "11": phase_ipm_e2e,
           "12": phase_ipm_vs_cpu, "13": phase_many, "14": phase_aux,
           "15": phase_mesh, "16": phase_bench, "17": phase_large,
-          "18": phase_graft, "19": phase_segments}
+          "18": phase_graft, "19": phase_segments,
+          "20": phase_tableau_step}
 # seconds per phase, and the mesh phase's passed gates, for [total]
 _PHASE_S = {}
 

@@ -15,7 +15,11 @@ the unsharded result; the pivot loops replayed as CUDA graphs
 (lp/segments.py) pivot bit for bit as the eager loop, primal, dual,
 3-D and revised (``-k revised_graphs``), and the interior-point
 iterations replayed as CUDA graphs step bit for bit as the eager loop
-(``-k ipm_graphs``).
+(``-k ipm_graphs``); the pivot step's two kernels (lp/tableau_step.py)
+step as the plain torch step from the same state, whole loops through
+them give the CPU's statuses and objectives on batches recorded from
+example10 and example11 solves, and segments.KERNEL_STEPS counts every
+tableau and dual step (``-k kernel``).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed (the
@@ -23,6 +27,9 @@ repo's conftest imports it, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
+
+import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -546,8 +553,9 @@ def test_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, path,
                                                  monkeypatch):
     """The pivot loop by replayed CUDA graphs (lp/segments.py) against the
     eager loop on the same inputs at float64: every field of every
-    loop's final state bit for bit, and the results equal; the graph run
-    replays graphs and runs no eager step."""
+    loop's final state (the carried reduced costs too) bit for bit, and
+    the results equal; the graph run replays graphs and runs no eager
+    step; both runs' steps are the kernel step of lp/tableau_step.py."""
     from bensolve_tpu_torch.lp import dual_simplex as dx
     from bensolve_tpu_torch.lp import segments
     from bensolve_tpu_torch.lp import simplex as sx
@@ -575,14 +583,15 @@ def test_graphs_equal_the_eager_loop_bit_for_bit(cuda_device, path,
     with segments.eager_loop():
         ref, eager = _loop_states(run, monkeypatch)
     assert segments.REPLAYS == 0 and segments.EAGER_STEPS > 0
+    assert segments.KERNEL_STEPS == segments.EAGER_STEPS
     steps = segments.EAGER_STEPS
     segments.reset_counts()
     got, graph = _loop_states(run, monkeypatch)
     assert segments.REPLAYS > 0 and segments.EAGER_STEPS == 0
-    assert segments.GRAPH_STEPS == steps
+    assert segments.GRAPH_STEPS == steps == segments.KERNEL_STEPS
     assert len(eager) == len(graph) > 0
     for a, b in zip(eager, graph):
-        for f in segments.FIELDS:
+        for f in segments.FIELDS + ("d",):
             x, y = getattr(a, f), getattr(b, f)
             assert x.shape == y.shape and torch.equal(_bits(x), _bits(y)), f
     for f in ("status", "iters", "basis", "at_upper", "obj", "x"):
@@ -708,3 +717,237 @@ def test_ipm_graphs_full_solve_equals_eager(cuda_device, case, monkeypatch):
                                                 device=cuda_device),
                     monkeypatch)
     assert (ref.status == OPTIMAL).all()
+
+
+# ------------------------------------- the pivot step's kernels by hand
+
+def _step_batch(Mp, NT, B, dtype, seed, dev="cuda"):
+    """B LPs of Mp rows and NT - Mp columns, as a tableau loop's start
+    state on the card, in the kinds a step must take, cycled by slot:
+    0 phase 2, 1 violated row bounds (the composite phase-1 costs), 2
+    column ranges of ~1e-3 from the slack basis (bound flips), 3 a Bland
+    stall, 4 every bound infinite from the slack basis (unbounded), 5
+    fixed columns and violated rows from the slack basis (infeasible), 6
+    finished
+    (OPTIMAL), 7 free and upper-bounded columns; the last B/8 slots are
+    padding, copies of slot 0 as simplex._pad_batch_inputs makes them.
+    Other slots start from a warm basis with a quarter of its slots
+    (at most half the columns) structural; devex weights in [1, 2).
+    Returns (c, lb, ub, state) on ``dev``."""
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    rng = np.random.default_rng(seed)
+    N = NT - Mp
+    A = rng.standard_normal((Mp, N)) / np.sqrt(N)
+    inf = np.inf
+    c = np.zeros((B, NT))
+    c[:, Mp:] = rng.standard_normal((B, N))
+    lb = np.zeros((B, NT))
+    ub = np.zeros((B, NT))
+    lb[:, :Mp], ub[:, :Mp] = -inf, 1 + rng.random((B, Mp))
+    ub[:, Mp:] = 10.0
+    basis = np.tile(np.arange(Mp), (B, 1))
+    kind = np.arange(B) % 8
+    for b in range(B):
+        k = kind[b]
+        if k == 1:
+            lb[b, :Mp], ub[b, :Mp] = 0.5 + rng.random(Mp), inf
+        elif k == 2:
+            ub[b, Mp:] = 1e-3 * rng.random(N)
+        elif k == 4:
+            lb[b], ub[b] = -inf, inf
+        elif k == 5:
+            ub[b, Mp:] = 0.0
+            lb[b, :Mp], ub[b, :Mp] = 1.0, 2.0
+        elif k == 7:
+            lb[b, Mp:Mp + N // 2] = -inf
+            ub[b, Mp:Mp + N // 4] = inf
+        if k not in (2, 4, 5):
+            n_s = min(Mp // 4, N // 2)
+            slots = rng.choice(Mp, n_s, replace=False)
+            basis[b, slots] = Mp + rng.choice(N, n_s, replace=False)
+    pad = B // 8
+    for x in (c, lb, ub, basis):
+        x[B - pad:] = x[0]
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa
+    c_t, lb_t, ub_t = t(c), t(lb), t(ub)
+    st = sx._initial_state(t(A), c_t, lb_t, ub_t,
+                           torch.as_tensor(basis, device=dev))
+    stall = torch.as_tensor(np.where(kind == 3, sx.BLAND_AFTER + 1, 0),
+                            dtype=torch.int32, device=dev)
+    status = torch.where(torch.as_tensor(kind == 6, device=dev),
+                         sx.OPTIMAL, st.status).to(torch.int32)
+    gamma = t(1 + rng.random((B, NT)))
+    stall[B - pad:], status[B - pad:], gamma[B - pad:] = (
+        stall[0], status[0], gamma[0])
+    st = dataclasses.replace(st, stall=stall, status=status, gamma=gamma)
+    st = dataclasses.replace(st, **{f: getattr(st, f).contiguous()
+                                    for f in ("W", "xb", "lbB", "ubB",
+                                              "cB", "basis")})
+    return c_t, lb_t, ub_t, st
+
+
+def _clone(st):
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone()
+        for f in dataclasses.fields(st) if getattr(st, f.name) is not None})
+
+
+def _fresh_d(c, st, dual):
+    """c_eff - cB_eff W from the state's own fields, and the scale of
+    each entry's sum (|c| + |cB_eff| |W|)."""
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    if dual:
+        feas, cbe = torch.ones_like(st.status, dtype=torch.bool), st.cB
+    else:
+        _, _, feas, cbe = sx._phase_costs(st)
+    ce = torch.where(feas[:, None], c, torch.zeros_like(c))
+    d = ce - torch.bmm(cbe[:, None, :], st.W)[:, 0, :]
+    scale = ce.abs() + torch.bmm(cbe.abs()[:, None, :], st.W.abs())[:, 0, :]
+    return d, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 256])
+@pytest.mark.parametrize("shape", [(48, 64), (80, 96), (384, 768)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
+def test_kernel_step_matches_the_plain_step(cuda_device, dual, dtype, shape,
+                                            B):
+    """One step of lp/tableau_step.py's kernels against the plain torch
+    step (simplex._step_plain, dual_simplex._dstep_plain) from the same
+    state (_step_batch's kinds, at ex11's (48, 64) and (80, 96) and ex10's
+    (384, 768)): basis, in_basis, at_upper, status, stall, iters and the
+    basic bounds and costs equal; W, the basic values and the devex
+    weights equal bit for bit (none of them is a sum: the kernels compute
+    each with the torch step's operations and roundings); the carried
+    reduced costs d within 1e-13 (float64) or 1e-5 (float32) of the
+    scale of their sum (|c| + |cB_eff| |W|) from a fresh c_eff -
+    cB_eff W (cuBLAS and the kernel sum in different orders)."""
+    from bensolve_tpu_torch.lp import dual_simplex as dx
+    from bensolve_tpu_torch.lp import simplex as sx
+    from bensolve_tpu_torch.lp import tableau_step
+
+    c, lb, ub, st = _step_batch(*shape, B, dtype, seed=B + shape[0])
+    plain = (dx._dstep_plain if dual else sx._step_plain)(
+        None, c, lb, ub, _clone(st))
+    got = tableau_step.step(c, lb, ub,
+                            tableau_step.price(c, _clone(st), dual), dual)
+    torch.cuda.synchronize()
+    for f in ("basis", "in_basis", "at_upper", "status", "stall", "iters",
+              "lbB", "ubB", "cB", "W", "xb", "gamma"):
+        x, y = getattr(plain, f), getattr(got, f)
+        assert torch.equal(_bits(x), _bits(y)), f
+    d, scale = _fresh_d(c, got, dual)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    assert ((got.d - d).abs() <= tol * scale).all()
+    stepped = got.iters > st.iters
+    assert stepped.any()
+    if not dual:
+        assert (got.status == sx.UNBOUNDED).any()
+        assert (got.status == sx.INFEASIBLE).any()
+        # bound flips: a step taken with the basis unchanged
+        assert (stepped & (got.basis == st.basis).all(dim=1)).any()
+
+
+def _recorded_batches(vlp, monkeypatch):
+    """The LP batches (A, c, row bounds, column bounds) a float64 solve
+    of ``vlp`` on the card hands its LP layer, in order."""
+    from bensolve_tpu_torch.algs import templates
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    batches, real = [], templates._TemplateBase._run
+
+    def record(self, A_lp, obj, row_lb, row_ub, col_lb, col_ub, *a, **kw):
+        A = A_lp.A if isinstance(A_lp, sx._PreparedA) else A_lp
+        batches.append(tuple(np.array(x, np.float64) for x in (
+            A, np.atleast_2d(obj), row_lb, row_ub, col_lb, col_ub)))
+        return real(self, A_lp, obj, row_lb, row_ub, col_lb, col_ub, *a,
+                    **kw)
+
+    with monkeypatch.context() as m:
+        m.setattr(templates._TemplateBase, "_run", record)
+        solve(vlp, Options(device="cuda", write_files=False))
+    return batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["example10", "example11"])
+def test_kernel_loops_match_the_cpu_on_recorded_batches(cuda_device, name,
+                                                        monkeypatch, capsys):
+    """Whole pivot loops through the kernels on the card against the
+    plain step on the CPU, on LP batches recorded from a solve (at most
+    16 LPs of each of the first three batches of 8 or more, and of the
+    largest): a cold primal solve, then dual re-solves from its bases
+    with the row bounds of the batch's LPs rotated by one.  Statuses
+    equal, objectives within 1e-9 relative.  Every LP whose iteration
+    count differs is printed beside the plain step's count on the card
+    (eager loop): the three sum the reduced costs in three orders (the
+    kernel, cuBLAS, the CPU's BLAS), which can break a near-tie of the
+    pricing the other way."""
+    from bensolve_tpu_torch.lp import dual_simplex as dx
+    from bensolve_tpu_torch.lp import segments
+    from bensolve_tpu_torch.lp import simplex as sx
+
+    batches = _recorded_batches(getattr(examples, name)(), monkeypatch)
+    big = [b for b in batches if b[1].shape[0] >= 8]
+    picked = big[:3] + [max(batches, key=lambda b: b[1].shape[0])]
+    report = []
+    for k, (A, c, rlb, rub, clb, cub) in enumerate(picked):
+        c, rlb, rub, clb, cub = (x[:16] for x in (c, rlb, rub, clb, cub))
+        runs = {}
+        for mode, dev in (("kernel", "cuda"), ("plain", "cuda"),
+                          ("cpu", "cpu")):
+            segments.reset_counts()
+            with monkeypatch.context() as m, contextlib.ExitStack() as es:
+                if mode == "plain":
+                    m.setattr(sx, "_step", sx._step_plain)
+                    m.setattr(dx, "_dstep", dx._dstep_plain)
+                    es.enter_context(segments.eager_loop())
+                pri = sx.solve_batch(A, c, rlb, rub, clb, cub, device=dev)
+                rot = np.roll(np.arange(c.shape[0]), 1)
+                dua = dx.solve_batch_dual(
+                    A, c, rlb[rot], rub[rot], clb, cub,
+                    start_basis=(pri.basis, pri.at_upper), device=dev)
+            kernel = segments.KERNEL_STEPS
+            assert kernel > 0 if mode == "kernel" else kernel == 0
+            runs[mode] = (pri, dua)
+        for j, label in enumerate(("primal", "dual")):
+            got, plain, ref = (runs[m][j] for m in ("kernel", "plain", "cpu"))
+            np.testing.assert_array_equal(got.status, ref.status)
+            ok = ref.status == OPTIMAL
+            np.testing.assert_allclose(got.obj[ok], ref.obj[ok], rtol=1e-9,
+                                       atol=1e-9)
+            for i in np.flatnonzero(got.iters != ref.iters):
+                report.append(f"{name} batch {k} {label} LP {i}: "
+                              f"{got.iters[i]} kernel, {plain.iters[i]} "
+                              f"plain on the card, {ref.iters[i]} cpu")
+    with capsys.disabled():
+        print(f"\n[{name}] iteration counts that differ: "
+              f"{len(report)}" + "".join("\n  " + r for r in report))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alg", [Alg.PRIMAL, Alg.DUAL])
+def test_kernel_steps_count_every_tableau_step(cuda_device, alg):
+    """KERNEL_STEPS of a float64 example11 solve on the card equals the
+    tableau and dual loops' steps (replayed and eager), the revised and
+    IPM loops count none, and the f32 kernel is not launched."""
+    from bensolve_tpu_torch.lp import segments
+
+    segments.reset_counts()
+    before = _counts()
+    solve(examples.example11(),
+          Options(device="cuda", write_files=False, alg_phase1=alg,
+                  alg_phase2=alg))
+    c = segments.counts()
+    by = c["by_loop"]
+    loops = sum(by[k][f] for k in ("tableau", "dual")
+                for f in ("graph_steps", "eager_steps"))
+    assert loops > 0 and c["kernel_steps"] == loops
+    for k in ("tableau", "dual"):
+        assert by[k]["kernel_steps"] == (by[k]["graph_steps"]
+                                         + by[k]["eager_steps"])
+    assert by["revised"]["kernel_steps"] == by["ipm"]["kernel_steps"] == 0
+    assert _counts() == before
