@@ -7,5 +7,6 @@ want of data).  ``PROBES`` names the instruments (``probes/<name>.py``)
 that a per-layer reader needs in the traced run.  ``run`` holds:
 ``solves`` (one dict per window solve: wall_s, ok, lps, rounds),
 ``window_s``, ``setup_s``, ``probes`` (name -> probe), ``trace`` (the
-reduced device trace of the solves after the window, its operations on
-the host's clock under ``ops``, or None off the card)."""
+reduced device trace of the solves after the window, its operations and
+its window on the host's clock under ``ops`` and ``window``; None off
+the card, and where the trace came back incomplete)."""

@@ -21,7 +21,10 @@ JSON line last on standard output.  ``--trace 0`` reports the cell's
 end-to-end metrics; ``--trace 1`` wraps the layers' entries in the
 probes its per-layer metrics name, and after the window traces the card
 over a few more solves with torch.profiler, the probes then
-synchronising nothing, and reports the per-layer metrics.  The numbers
+synchronising nothing, and reports the per-layer metrics; a device trace
+that lost records is tried again, and where no attempt comes back
+complete the metrics that read it, its busy and window seconds and its
+breakdown are left out (``device_trace.py``).  The numbers
 compared, each beside its limit, are the last lines on standard error
 and the last key of the result line.  ``--control`` solves the window
 on the control's path (``control.py``).
@@ -167,6 +170,10 @@ def main(argv=None, device: str = "cuda") -> int:
 
     for var in THREAD_ENV:
         os.environ[var] = "1"
+    if args.trace and device == "cuda":
+        # kineto then logs its count of the records it lost, which the
+        # device trace reads (INFO; set before torch loads kineto)
+        os.environ["KINETO_LOG_LEVEL"] = "1"
     spec = load_json(ROOT, "BENCHMARK.json")
     cell, config, mix, own, e2e, layer = find_cell(spec, args.workload)
 
@@ -255,28 +262,30 @@ def main(argv=None, device: str = "cuda") -> int:
     if args.trace and device == "cuda":
         # the device trace: a few more solves after the window, under
         # the profiler, with the probes in their trace mode (host
-        # intervals only, no synchronise)
+        # intervals only, no synchronise); each attempt at them is one
+        # profiler session, until one is complete (device_trace.py)
         from benchmark.device_trace import DeviceTrace
 
         for p in probes.values():
             p.trace(True)
         dtrace, solve_spans = DeviceTrace(), []
-        dtrace.start()
-        for k in range(int(own.get("trace_solves", TRACE_SOLVES))):
-            rec, inst, _, err = one(len(solves) + k, solve_spans)
-            tail_failed += not rec["ok"]
-            errors.append(err)
-            traced.append(inst)
-        dtrace.stop()
+        while dtrace.wants():
+            spans = []
+            dtrace.start()
+            for _ in range(int(own.get("trace_solves", TRACE_SOLVES))):
+                rec, inst, _, err = one(len(solves) + len(traced), spans)
+                tail_failed += not rec["ok"]
+                errors.append(err)
+                traced.append(inst)
+            dtrace.stop((spans[0][0], spans[-1][1]))
+            solve_spans += spans
         for p in probes.values():
             p.trace(False)
         host = {}
         for p in probes.values():
             host.update(p.intervals())
         host["solve"] = solve_spans
-        trace = dtrace.result(host, (solve_spans[0][0], solve_spans[-1][1]))
-        log(f"# device trace: {len(solve_spans)} solves, clocks drifted "
-            f"{trace.pop('clock_drift_s'):.2e} s apart")
+        trace = dtrace.result(host)
     for p in probes.values():
         p.remove()
 

@@ -130,7 +130,7 @@ def test_pivot_roofline_reads_the_card_inside_the_loops():
     ops = [("step", 0.001, 0.001 + 20 * least), ("other", 0.03, 0.04)]
     run = types.SimpleNamespace(
         probes={"pivot_clock": types.SimpleNamespace(loops=loops)},
-        trace={"ops": ops})
+        trace={"ops": ops, "window": (0.0, 0.05)})
     assert reader.read(run) == pytest.approx(50.0)
     assert reader.read(types.SimpleNamespace(
         probes={"pivot_clock": types.SimpleNamespace(loops=loops)},
